@@ -1,8 +1,8 @@
-"""Ingest CLI: HotpotQA -> docs.jsonl + packed TPU index (+ per-sample graphs).
+"""Ingest CLI: HotpotQA -> docs.jsonl + packed device index (+ per-sample graphs).
 
 Role parity with /root/reference/my_code/ingest_hotpotqa.py: flattens context
 sentences into the docs.jsonl corpus and builds per-sample supporting-fact
-graphs (page nodes + bidirectional ``supporting`` edges). TPU addition: the
+graphs (page nodes + bidirectional ``supporting`` edges). Addition: the
 same pass runs the streaming embed+pack pipeline so the corpus comes out as
 a device-ready `PackedIndex` (embeddings, BM25 CSR, sentence adjacency).
 
@@ -81,7 +81,7 @@ def ingest(
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="Ingest HotpotQA into docs + packed TPU index")
+    ap = argparse.ArgumentParser(description="Ingest HotpotQA into docs + packed device index")
     ap.add_argument("--input", type=str,
                     default="data/hotpotqa/hotpot_dev_distractor_v1.json")
     ap.add_argument("--graph_root", type=str, default="data/graph/hotpotqa")

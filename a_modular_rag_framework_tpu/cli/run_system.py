@@ -6,7 +6,7 @@ reference lacked: per-run EM / relaxed-EM / F1 and verdict distribution.
 
 Usage:
   python -m a_modular_rag_framework_tpu.cli.run_system \
-      --settings config/settings.yaml --mode full --output results.json
+      --settings config/settings.json --mode full --output results.json
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from ..system import answer_question
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--settings", type=str, default="config/settings.yaml")
+    ap.add_argument("--settings", type=str, default="config/settings.json")
     ap.add_argument("--mode", type=str, default="full",
                     choices=["graph_only", "full"])
     ap.add_argument("--output", type=str, default="results.json")

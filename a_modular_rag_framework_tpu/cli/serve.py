@@ -128,11 +128,11 @@ def _make_handler(app: _App):
 def build_engine(args):
     """-> (engine, n_docs, settings_path). --index wins; else DI factory."""
     if args.index:
-        from ..engine.query_engine import EngineConfig, TPUQueryEngine
+        from ..engine.query_engine import EngineConfig, QueryEngine
         from ..index.packed import PackedIndex
 
         idx = PackedIndex.load(args.index)
-        eng = TPUQueryEngine(idx, config=EngineConfig(
+        eng = QueryEngine(idx, config=EngineConfig(
             top_k=args.top_k, graph_window=2,
             batch_buckets=(64, 256, args.max_batch),
             query_df_ratio_max=0.05, bm25_term_topm=32,
@@ -144,14 +144,14 @@ def build_engine(args):
     backend = getattr(node_ctx.retriever, "backend", None)
     engine = getattr(backend, "engine", None)
     if engine is None:
-        raise SystemExit("settings build no TPU engine; pass --index")
+        raise SystemExit("settings build no query engine; pass --index")
     n_docs = getattr(getattr(engine, "index", None), "n_docs", 0)
     return engine, n_docs, args.settings
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--settings", type=str, default="config/settings.yaml")
+    ap.add_argument("--settings", type=str, default="config/settings.json")
     ap.add_argument("--index", type=str, default="",
                     help="packed-index dir (e.g. data/bench_cache); "
                          "bypasses the DI factory")

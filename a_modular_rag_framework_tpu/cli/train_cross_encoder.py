@@ -58,7 +58,7 @@ def eval_rerank(samples, reranker, k: int = 10) -> dict:
     """Held-out end-to-end effect: build an index + engine over
     ``samples``, rerank its top-k with the cross-encoder, report
     recall@k / MRR before vs after."""
-    from ..engine.query_engine import EngineConfig, TPUQueryEngine
+    from ..engine.query_engine import EngineConfig, QueryEngine
     from ..eval.harness import gold_hit_ids
     from ..eval.metrics import mrr as mrr_fn
     from ..eval.metrics import recall_at_k
@@ -68,7 +68,7 @@ def eval_rerank(samples, reranker, k: int = 10) -> dict:
     corpus = SentenceCorpus.from_hotpotqa(samples)
     idx = build_packed_index(corpus)
     B = 64
-    engine = TPUQueryEngine(idx, config=EngineConfig(
+    engine = QueryEngine(idx, config=EngineConfig(
         top_k=k, pool_k=200, graph_window=2, batch_buckets=(B,),
         query_df_ratio_max=0.05))
     out = {"recall_before": [], "recall_after": [],

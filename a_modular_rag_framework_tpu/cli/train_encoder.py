@@ -3,7 +3,7 @@
 Trains on (question, supporting-sentence) pairs from a HotpotQA-style
 dataset (real file or synthetic), with in-batch InfoNCE. The exported
 weights load back through ``TextEncoder`` and plug into the engine /
-TPUEmbedProvider as the dense-channel encoder.
+LocalEmbedProvider as the dense-channel encoder.
 
 Usage:
   python -m a_modular_rag_framework_tpu.cli.train_encoder \
@@ -39,7 +39,7 @@ def evaluate_encoder(samples, encoder, embed_dim: int) -> Dict[str, float]:
     """Held-out retrieval quality: build a fresh index over ``samples``
     with the given encoder (None = hash baseline) and run the full hybrid
     engine over their questions."""
-    from ..engine.query_engine import EngineConfig, TPUQueryEngine
+    from ..engine.query_engine import EngineConfig, QueryEngine
     from ..eval.harness import evaluate_retrieval
     from ..index.builder import build_packed_index
     from ..index.corpus import SentenceCorpus
@@ -47,7 +47,7 @@ def evaluate_encoder(samples, encoder, embed_dim: int) -> Dict[str, float]:
     corpus = SentenceCorpus.from_hotpotqa(samples)
     idx = build_packed_index(corpus, encoder=encoder,
                              embed_dim=embed_dim, embed_dtype="float32")
-    engine = TPUQueryEngine(
+    engine = QueryEngine(
         idx, encoder=encoder,
         config=EngineConfig(top_k=10, pool_k=200, graph_window=2,
                             batch_buckets=(64,)),

@@ -1,35 +1,72 @@
 """Core data contracts (L2).
 
-Pydantic DTOs mirroring the reference's module I/O contracts
-(see /root/reference/app/core/dto.py:9-209) plus the TPU-native device
-currency: retrieval hit batches travel between device programs as
+Dataclass DTOs mirroring the reference's module I/O contracts
+(the reference's app/core/dto.py:9-209) plus the device currency:
+retrieval hit batches travel between device programs as
 ``(ids: int32[B, K], scores: float32[B, K])`` arrays (`HitBatch`), and are
 hydrated into per-hit `Hit` objects only at the host boundary.
+
+The reference's contracts are pydantic models; these keep the part of that
+surface callers use — keyword construction, nested ``Hit``/``EdgeEvidence``
+lists given as dicts, ``model_dump()`` and ``model_copy()`` — with the
+standard library only.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-from pydantic import BaseModel, ConfigDict, Field
+
+
+def _items(item_cls) -> Any:
+    """A list field whose dict entries are built into ``item_cls``."""
+    return field(default_factory=list, metadata={"item": item_cls})
+
+
+class _Model:
+    """model_dump / model_copy for the DTO dataclasses."""
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            item = f.metadata.get("item")
+            if item is not None:
+                setattr(self, f.name, [
+                    item(**v) if isinstance(v, dict) else v
+                    for v in getattr(self, f.name) or []])
+            model = f.metadata.get("model")
+            if model is not None and isinstance(getattr(self, f.name), dict):
+                setattr(self, f.name, model(**getattr(self, f.name)))
+
+    def model_dump(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def model_copy(self, *, update: Optional[Dict[str, Any]] = None,
+                   deep: bool = False):
+        src = copy.deepcopy(self) if deep else self
+        return dataclasses.replace(src, **(update or {}))
 
 
 # ========= Graph build =========
 
 
-class GraphBuildIn(BaseModel):
+@dataclass(kw_only=True)
+class GraphBuildIn(_Model):
     trace_id: str
     question_text: str = ""
-    context: List[Any] = Field(default_factory=list)
+    context: List[Any] = field(default_factory=list)
 
     graph_id: Optional[str] = None
-    nodes: List[Dict[str, Any]] = Field(default_factory=list)
-    edges: List[Dict[str, Any]] = Field(default_factory=list)
+    nodes: List[Dict[str, Any]] = field(default_factory=list)
+    edges: List[Dict[str, Any]] = field(default_factory=list)
 
-    extra: Dict[str, Any] = Field(default_factory=dict)
+    extra: Dict[str, Any] = field(default_factory=dict)
 
 
-class GraphBuildOut(BaseModel):
+@dataclass(kw_only=True)
+class GraphBuildOut(_Model):
     graph_id: str
     node_count: int
     edge_count: int
@@ -39,13 +76,14 @@ class GraphBuildOut(BaseModel):
     provenance: Optional[Dict[str, Any]] = None
     diagnostics: Optional[Dict[str, Any]] = None
 
-    extra: Dict[str, Any] = Field(default_factory=dict)
+    extra: Dict[str, Any] = field(default_factory=dict)
 
 
 # ========= Retrieval =========
 
 
-class RetrievalIn(BaseModel):
+@dataclass(kw_only=True)
+class RetrievalIn(_Model):
     query: str
     graph_id: str = ""
     top_k: int = 20
@@ -55,19 +93,25 @@ class RetrievalIn(BaseModel):
     graph_window: Optional[int] = None
 
 
-class Hit(BaseModel):
+@dataclass(kw_only=True)
+class Hit(_Model):
     id: str
     score: float
-    meta: Dict[str, Any] = Field(default_factory=dict)
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.score = float(self.score)
 
 
-class RetrievalOut(BaseModel):
-    hits: List[Hit] = Field(default_factory=list)
-    diagnostics: Dict[str, Any] = Field(default_factory=dict)
+@dataclass(kw_only=True)
+class RetrievalOut(_Model):
+    hits: List[Hit] = _items(Hit)
+    diagnostics: Dict[str, Any] = field(default_factory=dict)
     model: Optional[str] = None
 
 
-class HitBatch(BaseModel):
+@dataclass(kw_only=True)
+class HitBatch(_Model):
     """Device-side retrieval currency: a batch of top-K hits as arrays.
 
     ``ids`` are row indices into a corpus table (int32, shape [B, K]);
@@ -78,8 +122,6 @@ class HitBatch(BaseModel):
     lookup. This replaces the reference's per-hit dict flow
     (retrieval_backend.py:336-372) with a single device->host transfer.
     """
-
-    model_config = ConfigDict(arbitrary_types_allowed=True)
 
     ids: Any  # np.ndarray int32 [B, K]
     scores: Any  # np.ndarray float32 [B, K]
@@ -108,26 +150,29 @@ class HitBatch(BaseModel):
 # ========= Reasoning =========
 
 
-class ReasoningIn(BaseModel):
+@dataclass(kw_only=True)
+class ReasoningIn(_Model):
     question: str
-    hits: List[Hit] = Field(default_factory=list)
+    hits: List[Hit] = _items(Hit)
     graph_id: str = ""
     trace_id: str
 
 
-class ReasoningOut(BaseModel):
+@dataclass(kw_only=True)
+class ReasoningOut(_Model):
     answer: str
-    evidence_used: List[Hit] = Field(default_factory=list)
-    steps: List[Dict[str, Any]] = Field(default_factory=list)
+    evidence_used: List[Hit] = _items(Hit)
+    steps: List[Dict[str, Any]] = field(default_factory=list)
     model: Optional[str] = None
 
 
 # ========= Verification =========
 
 
-class VerifyIn(BaseModel):
+@dataclass(kw_only=True)
+class VerifyIn(_Model):
     answer: str
-    evidence: List[Hit] = Field(default_factory=list)
+    evidence: List[Hit] = _items(Hit)
     question: Optional[str] = None
     query: Optional[str] = None
     graph_id: Optional[str] = None
@@ -135,7 +180,8 @@ class VerifyIn(BaseModel):
     retry_round: int = 0
 
 
-class VerifyOut(BaseModel):
+@dataclass(kw_only=True)
+class VerifyOut(_Model):
     """Verifier output.
 
     ``status``: coarse "pass" | "fail" | "warn".
@@ -148,13 +194,13 @@ class VerifyOut(BaseModel):
     """
 
     status: str
-    findings: List[Dict[str, Any]] = Field(default_factory=list)
+    findings: List[Dict[str, Any]] = field(default_factory=list)
     model: Optional[str] = None
 
     ok: Optional[bool] = None
     score: Optional[float] = None
-    issues: List[str] = Field(default_factory=list)
-    diagnostics: Dict[str, Any] = Field(default_factory=dict)
+    issues: List[str] = field(default_factory=list)
+    diagnostics: Dict[str, Any] = field(default_factory=dict)
 
     coverage_score: Optional[float] = None
     consistency_score: Optional[float] = None
@@ -173,23 +219,26 @@ class VerifyOut(BaseModel):
 # ========= Graph atoms =========
 
 
-class EdgeEvidence(BaseModel):
+@dataclass(kw_only=True)
+class EdgeEvidence(_Model):
     channel: str
     score: float
-    meta: Dict[str, Any] = Field(default_factory=dict)
+    meta: Dict[str, Any] = field(default_factory=dict)
 
 
-class GraphNode(BaseModel):
+@dataclass(kw_only=True)
+class GraphNode(_Model):
     id: str
     type: str
     text: str
-    meta: Dict[str, Any] = Field(default_factory=dict)
+    meta: Dict[str, Any] = field(default_factory=dict)
 
 
-class GraphEdge(BaseModel):
+@dataclass(kw_only=True)
+class GraphEdge(_Model):
     source: str
     target: str
     type: str
     weight: float = 1.0
-    meta: Dict[str, Any] = Field(default_factory=dict)
-    evidence: List[EdgeEvidence] = Field(default_factory=list)
+    meta: Dict[str, Any] = field(default_factory=dict)
+    evidence: List[EdgeEvidence] = _items(EdgeEvidence)

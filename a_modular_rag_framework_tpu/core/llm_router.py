@@ -6,7 +6,7 @@ Semantics parity with /root/reference/app/core/llm_router.py:13-146:
   - ``complete`` / ``embed`` wrap provider calls with error->mock degradation
     and per-call telemetry (provider/model/tokens/latency).
 
-TPU addition: ``embedding_provider`` may name a `TPUEmbedProvider`, putting
+Addition: ``embedding_provider`` may name a `LocalEmbedProvider`, putting
 the embedding path on the local accelerator instead of a remote API.
 """
 from __future__ import annotations
@@ -176,4 +176,4 @@ class LLMRouter:
         emb = (self.policy or {}).get("embedding") or []
         if emb and isinstance(emb[0], dict) and emb[0].get("model"):
             return str(emb[0]["model"])
-        return "tpu-hash-encoder"
+        return "hash-encoder"

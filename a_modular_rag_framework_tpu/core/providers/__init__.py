@@ -2,7 +2,7 @@ from .base import LLMProvider
 from .mock_provider import MockProvider
 from .ollama_provider import OllamaProvider
 from .openai_provider import OpenAIProvider
-from .tpu_embed_provider import TPUEmbedProvider
+from .local_embed_provider import LocalEmbedProvider
 from .transcript_provider import TranscriptRecorder, TranscriptReplayProvider
 
 __all__ = [
@@ -10,7 +10,7 @@ __all__ = [
     "MockProvider",
     "OllamaProvider",
     "OpenAIProvider",
-    "TPUEmbedProvider",
+    "LocalEmbedProvider",
     "TranscriptRecorder",
     "TranscriptReplayProvider",
 ]

@@ -1,4 +1,4 @@
-"""TPU-local embedding provider — the router's on-device embedding path.
+"""Local embedding provider — the router's on-device embedding path.
 
 The reference fetched embeddings from a remote API in batches of 50
 (retrieval_backend.py:233-243). Here embeddings are produced by a jitted
@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 
-class TPUEmbedProvider:
+class LocalEmbedProvider:
     """Batched on-device text encoder behind the `LLMProvider` protocol.
 
     Parameters
@@ -41,7 +41,7 @@ class TPUEmbedProvider:
         self.encoder = encoder
 
     def complete(self, prompt: str, **kw: Any) -> Dict[str, Any]:
-        raise NotImplementedError("TPUEmbedProvider is embeddings-only")
+        raise NotImplementedError("LocalEmbedProvider is embeddings-only")
 
     def embed(self, texts: List[str], **kw: Any) -> Dict[str, Any]:
         texts = list(texts)

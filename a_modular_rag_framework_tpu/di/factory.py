@@ -1,4 +1,4 @@
-"""YAML-driven dependency-injection factory (L5).
+"""Settings-driven dependency-injection factory (L5).
 
 Semantics parity with /root/reference/app/di/factory.py:12-152:
   - ``import_from_string("pkg.mod:Class")`` dynamic import
@@ -6,18 +6,20 @@ Semantics parity with /root/reference/app/di/factory.py:12-152:
   - three module-spec forms (string / {impl,kwargs} / {type,kwargs,impl,impl_kwargs})
   - reflection-filtered instantiation with router/sink auto-injection
 
-TPU additions: the settings schema gains ``mesh`` (device mesh axes),
-``index`` (shards/dtype/capacities), and ``kernels`` (pallas on/off, tile
-sizes) sections consumed by `parallel` and `engine`.
+Additions: the settings schema gains ``mesh`` (device mesh axes),
+``index`` (shards/dtype/capacities), and ``kernels`` (query batch buckets)
+sections consumed by `parallel` and `engine`. The shipped settings are JSON
+and load with the standard library; a ``.yaml``/``.yml`` file loads through
+PyYAML, imported only then.
 """
 from __future__ import annotations
 
 import importlib
 import inspect
+import json
 import os
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
-
-import yaml
 
 
 def import_from_string(path: str):
@@ -26,13 +28,29 @@ def import_from_string(path: str):
         mod_name, attr = path.split(":", 1)
     else:
         mod_name, attr = path.rsplit(".", 1)
-    mod = importlib.import_module(mod_name)
-    return getattr(mod, attr)
+    try:
+        return getattr(importlib.import_module(mod_name), attr)
+    except (ImportError, AttributeError) as e:
+        # settings files written for an earlier release may name modules
+        # or classes since renamed; say which entry failed
+        raise ImportError(
+            f"settings entry {path!r} does not name an importable "
+            f"object ({e}); CHANGES.md lists renamed modules and classes"
+        ) from e
 
 
 def load_settings(path: str) -> Dict[str, Any]:
-    with open(path, "r", encoding="utf-8") as f:
-        return yaml.safe_load(f) or {}
+    """Read a settings file: JSON, or YAML for ``.yaml``/``.yml`` paths."""
+    text = Path(path).read_text(encoding="utf-8")
+    if Path(path).suffix.lower() not in (".yaml", ".yml"):
+        return json.loads(text) or {}
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            f"{path} is YAML, which needs PyYAML (not installed); "
+            "install it or convert the file to JSON") from e
+    return yaml.safe_load(text) or {}
 
 
 def resolve_env(v: Any) -> Any:

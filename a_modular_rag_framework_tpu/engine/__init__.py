@@ -1,3 +1,3 @@
-from .query_engine import EngineConfig, QueryResult, TPUQueryEngine
+from .query_engine import EngineConfig, QueryResult, QueryEngine
 
-__all__ = ["EngineConfig", "QueryResult", "TPUQueryEngine"]
+__all__ = ["EngineConfig", "QueryResult", "QueryEngine"]

@@ -12,8 +12,7 @@ Two client shapes:
 - ``submit(query)`` -> Future[Sequence[Hit]] — one query per future (a
   lazy `LazyHits` view; Hit construction is deferred to first read). Each
   resolution wakes one waiting thread, so closed-loop single-query clients
-  cap on Python thread-switch overhead (~10k submits/s machinery ceiling
-  measured in-process) long before the device does.
+  cap on Python thread-switch overhead long before the device does.
 - ``submit_many(queries)`` -> Future[List[Sequence[Hit]]] — a sub-batch rides
   the dispatch loop as ONE unit: one queue entry, one future, one wakeup.
   This is the throughput surface for callers that have batches (agents
@@ -60,7 +59,7 @@ class _Resolved:
 class LazyHits(_SeqABC):
     """List[Hit]-shaped view over one query's row of a ``QueryResult``.
 
-    Hit/meta construction (~10 pydantic objects + meta dicts per query) is
+    Hit/meta construction (~10 Hit objects + meta dicts per query) is
     the dominant HOST cost of serving a query — more than the query's share
     of the device program at scale. Under the GIL it costs the same total
     time no matter which thread runs it, so the only real win is not
@@ -139,7 +138,7 @@ class _ClientFuture:
 
 
 class QueryServer:
-    """Thread-safe micro-batching wrapper around `TPUQueryEngine`.
+    """Thread-safe micro-batching wrapper around `QueryEngine`.
 
     Usage:
         server = QueryServer(engine, max_batch=64)

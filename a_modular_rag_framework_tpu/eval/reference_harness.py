@@ -16,7 +16,7 @@ AMRF_REFERENCE_ROOT) — never copies it — and drives it on a shared dataset:
      through its LLMRouter so both systems score dense similarity with
      IDENTICAL embeddings (the offline default would zero out the
      reference's dense channel, understating it);
-  3. our ingest CLI feeding ``TPUHybridRetrievalBackend`` on the same file;
+  3. our ingest CLI feeding ``EngineRetrievalBackend`` on the same file;
   4. identical metrics for both: Recall@k / MRR against supporting-fact
      sentence ids, per-query latency, QPS.
 
@@ -222,7 +222,7 @@ def run_reference_eval(ref: SimpleNamespace, samples: List[Dict[str, Any]],
 def run_engine_eval(samples: List[Dict[str, Any]], *, docs_path: Path,
                     graph_root: Path, k: int = 10, embed_dim: int = 64,
                     batch_size: int = 256) -> Dict[str, Any]:
-    from ..modules.retrieval.tpu_backend import TPUHybridRetrievalBackend
+    from ..modules.retrieval.engine_backend import EngineRetrievalBackend
     from ..core.dto import RetrievalIn
     from ..core.llm_router import LLMRouter
     from ..core.providers.mock_provider import MockProvider
@@ -231,10 +231,10 @@ def run_engine_eval(samples: List[Dict[str, Any]], *, docs_path: Path,
                        {"default": [{"provider": "mock", "model": "mock"}],
                         "embedding_provider": "mock"})
     t0 = time.time()
-    backend = TPUHybridRetrievalBackend(
+    backend = EngineRetrievalBackend(
         router=router, index_path=str(docs_path), graph_root=str(graph_root),
         embed_dim=embed_dim,
-        # the shipped production configuration (settings.yaml):
+        # the shipped production configuration (settings.json):
         # idf pruning + the pruning-sized phase-1 window
         query_df_ratio_max=0.05,
         bm25_term_topm=32,
@@ -257,7 +257,7 @@ def run_engine_eval(samples: List[Dict[str, Any]], *, docs_path: Path,
     for s in samples:
         req = RetrievalIn(query=s["question"],
                           graph_id=f"hotpotqa-{s['_id']}",
-                          top_k=max(k, 10), trace_id=f"tpu-{s['_id']}")
+                          top_k=max(k, 10), trace_id=f"engine-{s['_id']}")
         q0 = time.time()
         out = backend.retrieve(req)
         lat.append(time.time() - q0)
@@ -286,7 +286,7 @@ def run_engine_eval(samples: List[Dict[str, Any]], *, docs_path: Path,
     import jax
 
     return {
-        "system": "tpu_engine",
+        "system": "engine",
         "backend": jax.default_backend(),
         "n": len(samples),
         f"recall_at_{k}": float(np.mean(recalls)) if recalls else 0.0,
@@ -357,21 +357,21 @@ def run_baseline(*, n_samples: int = 800, n_questions: int = 200,
     }
 
     if not skip_engine:
-        from ..cli.ingest_hotpotqa import ingest as tpu_ingest
+        from ..cli.ingest_hotpotqa import ingest as engine_ingest
 
-        tpu_dir = wd / "tpu"
-        tpu_docs = tpu_dir / "docs.jsonl"
-        tpu_graphs = tpu_dir / "graph"
+        eng_dir = wd / "engine"
+        eng_docs = eng_dir / "docs.jsonl"
+        eng_graphs = eng_dir / "graph"
         t0 = time.time()
-        tpu_ingest(samples, graph_root=tpu_graphs, docs_out=tpu_docs,
+        engine_ingest(samples, graph_root=eng_graphs, docs_out=eng_docs,
                    embed_dim=embed_dim)
-        tpu_ingest_sec = time.time() - t0
+        eng_ingest_sec = time.time() - t0
 
-        engine = run_engine_eval(questions, docs_path=tpu_docs,
-                                 graph_root=tpu_graphs, k=k,
+        engine = run_engine_eval(questions, docs_path=eng_docs,
+                                 graph_root=eng_graphs, k=k,
                                  embed_dim=embed_dim)
-        engine["ingest_sec"] = round(tpu_ingest_sec, 2)
-        result["tpu_engine"] = engine
+        engine["ingest_sec"] = round(eng_ingest_sec, 2)
+        result["engine"] = engine
         rk = f"recall_at_{k}"
         if reference[rk] > 0:
             result["recall_ratio_vs_raw"] = round(engine[rk] / reference[rk], 4)
@@ -386,7 +386,7 @@ def run_baseline(*, n_samples: int = 800, n_questions: int = 200,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(
-        description="Measure the reference pipeline vs the TPU engine on a "
+        description="Measure the reference pipeline vs the device engine on a "
                     "shared dataset")
     ap.add_argument("--samples", type=int, default=800)
     ap.add_argument("--questions", type=int, default=200)

@@ -1,6 +1,6 @@
 """Streaming index build: ingest -> chunk -> embed -> pack.
 
-The TPU-native replacement for the reference's ingest path
+The device-side replacement for the reference's ingest path
 (my_code/ingest_hotpotqa.py:46-87 writes docs.jsonl; BM25 re-indexes from it
 at every construction, text_index.py:32-53; embeddings came from a remote
 API at query time). Here ingest produces one `PackedIndex` artifact:
@@ -11,7 +11,7 @@ API at query time). Here ingest produces one `PackedIndex` artifact:
   3. BM25 CSR postings and the sentence graph (next-in-doc chains +
      shared-entity links) are built host-side in the same pass;
   4. everything is packed + checksummed to disk, ready to memory-map
-     straight back to HBM.
+     straight back to the device.
 
 Reports passages/sec (the BASELINE.json index-build metric).
 """

@@ -1,4 +1,4 @@
-"""PackedIndex — the on-disk / in-HBM index artifact.
+"""PackedIndex — the on-disk / on-device index artifact.
 
 This is the checkpoint of the retrieval subsystem (SURVEY.md §5): embedding
 shards + BM25 CSR + sentence-graph adjacency + manifest with checksums, all

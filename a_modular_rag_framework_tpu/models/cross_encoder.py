@@ -1,4 +1,4 @@
-"""TPU cross-encoder reranker — the rerank stage of BASELINE config 4.
+"""Cross-encoder reranker — the rerank stage of BASELINE config 4.
 
 Joint (query, passage) relevance: both texts share ONE sequence with
 segment embeddings, so attention crosses between them, and a scalar head
@@ -10,7 +10,7 @@ engine produces.
 
 Device shape discipline: a rerank call scores ``B`` queries x ``M``
 candidates as ONE ``[B*M, L]`` batch through the transformer (bf16
-matmuls on the MXU, f32 accumulation), chunked to a fixed pair budget so
+matmuls, f32 accumulation), chunked to a fixed pair budget so
 bucket reuse keeps the program cache small. Reuses the flagship
 encoder's tokenizer/blocks (`models/encoder.py`) so subword-feature
 transfer behavior is shared.

@@ -8,7 +8,7 @@ through the SAME impact-sorted CSR posting machinery as the BM25 channel
 retrieval path is swappable between a lexical and a learned scorer.
 
 Model: the flagship encoder's transformer trunk (`models.encoder.
-encode_hidden` — shared MXU matmuls, shared subword hashing, so transfer
+encode_hidden` — shared matmuls, shared subword hashing, so transfer
 behavior matches the dense head) followed by an MLM-style expansion head
 tied to the token embedding, plus a learned lexical prior:
 
@@ -50,9 +50,9 @@ expansion exactly the text's own tokens — the InfoNCE gradient then
 carries lexical-overlap signal from step 0, and the tied decoder learns
 which co-occurring buckets to expand into on top of it.
 
-TPU-first notes:
+Design notes:
   - the [B, L, V] logits tensor never materializes: a `lax.scan` over the
-    L token positions runs one [B, D] @ [D, V] MXU matmul per step and
+    L token positions runs one [B, D] @ [D, V] matmul per step and
     folds the max into a [B, V] carry (64 steps of a 2048x128x8192 matmul
     beat one 4.3 GB intermediate at B=2048);
   - training is in-batch InfoNCE over sparse dot products plus the FLOPS

@@ -5,7 +5,7 @@ edge_builder.py:10-222 — five edge channels (next_in_doc / in_doc / q_match /
 semantic_sim / mentions), weighted channel-vote fusion over `EdgeEvidence`,
 sparsification by ``edge_min_vote`` / ``max_edges_per_node``, diagnostics.
 
-TPU-native difference: the G2 semantic channel embeds ALL sentences as one
+Device-side difference: the G2 semantic channel embeds ALL sentences as one
 device batch and computes every pairwise cosine with a single matmul +
 threshold + optional per-node top-k (`ops.semantic`) — replacing the
 reference's O(n^2) python pair loop with its per-text embed calls.

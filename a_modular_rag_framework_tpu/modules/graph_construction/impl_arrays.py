@@ -2,7 +2,7 @@
 JSON interop.
 
 Replaces /root/reference/app/modules/graph_construction/impl_networkx.py
-(nx.DiGraph + gexf/json/manifest) with the TPU-native store: nodes/edges are
+(nx.DiGraph + gexf/json/manifest) with an array-native store: nodes/edges are
 kept as flat arrays (id table + COO edge arrays + packed CSR adjacency ready
 for device frontier expansion) while persisting:
 

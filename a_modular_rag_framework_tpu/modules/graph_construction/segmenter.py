@@ -52,7 +52,7 @@ def segment_context(
 ) -> List[Tuple[str, List[str]]]:
     """Segment each (title, sentences) document.
 
-    ``embed_fn`` is BATCHED: ``List[str] -> [n, d]`` array (the TPU-native
+    ``embed_fn`` is BATCHED: ``List[str] -> [n, d]`` array (the batched
     signature; wrap single-text embedders upstream).
     """
     out: List[Tuple[str, List[str]]] = []

@@ -1,5 +1,5 @@
 from .flow import RetrievalAgentFlow
-from .tpu_backend import TPUHybridRetrievalBackend
+from .engine_backend import EngineRetrievalBackend
 from .retrieval_adapter import RetrievalAdapter
 
-__all__ = ["RetrievalAdapter", "RetrievalAgentFlow", "TPUHybridRetrievalBackend"]
+__all__ = ["RetrievalAdapter", "RetrievalAgentFlow", "EngineRetrievalBackend"]

@@ -1,4 +1,4 @@
-"""TPUHybridRetrievalBackend — the production retriever.
+"""EngineRetrievalBackend — the production retriever.
 
 Role parity with /root/reference/app/modules/retrieval/
 retrieval_backend.py:252-390 (the HybridRetrievalBackend): LLM query
@@ -7,7 +7,7 @@ min-max norm -> alpha fusion -> top-k, returning `RetrievalOut` hits with
 ``sent::<doc>::<sid>`` ids and channel-norm metadata.
 
 The difference is WHERE the work runs: steps 2-5 execute as one device
-program inside `TPUQueryEngine`; this class is the thin host adapter that
+program inside `QueryEngine`; this class is the thin host adapter that
 (a) expands the query via the router, (b) maps the per-question graph's
 q_match seeds to corpus rows (parity mode) or lets the engine derive
 weighted seeds from BM25 (corpus mode), and (c) hydrates the returned
@@ -15,7 +15,7 @@ weighted seeds from BM25 (corpus mode), and (c) hydrates the returned
 
 The packed index is built once from docs.jsonl and cached on disk next to
 it (``<docs>.packed/``); subsequent constructions memory-map it straight
-back to HBM instead of re-indexing (the reference re-indexed every init,
+back to the device instead of re-indexing (the reference re-indexed every init,
 text_index.py:32-53).
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ import numpy as np
 
 from ...core.dto import Hit, RetrievalIn, RetrievalOut
 from ...core.llm_router import LLMRouter
-from ...engine.query_engine import EngineConfig, TPUQueryEngine
+from ...engine.query_engine import EngineConfig, QueryEngine
 from ...index.builder import build_packed_index
 from ...index.corpus import SentenceCorpus
 from ...index.packed import PackedIndex
@@ -74,7 +74,7 @@ def load_or_build_packed_index(
     )
 
 
-class TPUHybridRetrievalBackend:
+class EngineRetrievalBackend:
     def __init__(
         self,
         router: Optional[LLMRouter] = None,
@@ -98,8 +98,7 @@ class TPUHybridRetrievalBackend:
         embed_dtype: str = "bfloat16",
         encoder: Optional[Any] = None,
         index: Optional[PackedIndex] = None,
-        engine: Optional[TPUQueryEngine] = None,
-        use_pallas: Any = "auto",
+        engine: Optional[QueryEngine] = None,
         include_entity_graph: bool = True,
         graph_seed_weighted: bool = True,
         bm25_impl: str = "sorted",
@@ -137,7 +136,7 @@ class TPUHybridRetrievalBackend:
         self.hop_decay = float(hop_decay)
 
         self.expander = LLMQueryExpander(router, qe_lines, qe_attr_paraphrase)
-        self._ephemeral_cache: Dict[str, TPUQueryEngine] = {}
+        self._ephemeral_cache: Dict[str, QueryEngine] = {}
 
         # optional second stage: joint (query, passage) cross-encoder over
         # the fused top-m (BASELINE config 4's rerank; cli/train_cross_encoder
@@ -237,7 +236,7 @@ class TPUHybridRetrievalBackend:
                                "ignoring mesh_axes %r", mesh_axes)
                 mesh_axes = None
             if mesh_axes:
-                # settings.yaml `mesh:` wiring: when the resolved mesh has
+                # settings.json `mesh:` wiring: when the resolved mesh has
                 # more than one device on the shard axis, serve through the
                 # fully-sharded hybrid engine (BM25 + graph + dense rows
                 # sharded over the axis, SURVEY §2b index-sharding row)
@@ -259,7 +258,7 @@ class TPUHybridRetrievalBackend:
                     logger.info("sharded hybrid engine: %d shards over %r",
                                 self.engine.n_shards, shard_axis)
             if self.engine is None:
-                self.engine = TPUQueryEngine(index, encoder=encoder,
+                self.engine = QueryEngine(index, encoder=encoder,
                                              config=config, sink=sink,
                                              splade_index=splade_index)
                 if (splade_cache is not None and not splade_cache.exists()
@@ -374,7 +373,7 @@ class TPUHybridRetrievalBackend:
             embed_dim=self.engine.index.embed_dim or 64,
             embed_dtype="float32",
         )
-        eng = TPUQueryEngine(
+        eng = QueryEngine(
             idx, encoder=self.engine.encoder,
             config=EngineConfig(
                 top_k=base.top_k, pool_k=min(base.pool_k, idx.n_docs),
@@ -467,7 +466,7 @@ class TPUHybridRetrievalBackend:
                if self.reranker is not None else {}),
             "seed_count": len(seeds) if seeds else 0,
             "resolved_embed_model": (
-                self.router.resolve_embed_model() if self.router else "tpu-hash-encoder"
+                self.router.resolve_embed_model() if self.router else "hash-encoder"
             ),
         }
         if self.sink:

@@ -1,7 +1,7 @@
 """Retrieval flow adapter (L3).
 
 Parity with /root/reference/app/modules/retrieval/flow.py:25-246 — two
-modes: an injected backend (the TPU hybrid engine in production), or a
+modes: an injected backend (the hybrid device engine in production), or a
 built-in fallback pipeline Expand -> RetrieveText -> GraphExpand ->
 RankSelect. The built-in mode also rides the device engine (BM25 + graph
 channels with raw-score alpha fusion, no dense rerank, no min-max norm —
@@ -70,9 +70,9 @@ class RetrievalAgentFlow:
         if impl_spec:
             impl_cls = import_from_string(impl_spec)
             raw_kwargs = dict(cfg.get("impl_kwargs") or {})
-            # top-level TPU sections feed backend defaults (module-level
+            # top-level sections feed backend defaults (module-level
             # impl_kwargs win): index -> embed dim/dtype/capacities,
-            # kernels -> pallas toggle
+            # kernels -> query batch buckets
             index_cfg = settings.get("index") or {}
             for src_key, dst_key in (("embed_dim", "embed_dim"),
                                      ("dtype", "embed_dtype"),
@@ -84,8 +84,6 @@ class RetrievalAgentFlow:
                 if src_key in index_cfg:
                     raw_kwargs.setdefault(dst_key, index_cfg[src_key])
             kernels_cfg = settings.get("kernels") or {}
-            if "use_pallas" in kernels_cfg:
-                raw_kwargs.setdefault("use_pallas", kernels_cfg["use_pallas"])
             if "query_batch_buckets" in kernels_cfg:
                 raw_kwargs.setdefault("batch_buckets",
                                       kernels_cfg["query_batch_buckets"])
@@ -108,11 +106,11 @@ class RetrievalAgentFlow:
 
     def _builtin_engine(self):
         if self._engine is None:
-            from .tpu_backend import load_or_build_packed_index
-            from ...engine.query_engine import EngineConfig, TPUQueryEngine
+            from .engine_backend import load_or_build_packed_index
+            from ...engine.query_engine import EngineConfig, QueryEngine
 
             index = load_or_build_packed_index(self.index_path)
-            self._engine = TPUQueryEngine(
+            self._engine = QueryEngine(
                 index,
                 config=EngineConfig(graph_window=self.graph_window),
                 sink=self.sink,

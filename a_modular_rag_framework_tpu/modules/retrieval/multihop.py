@@ -34,7 +34,7 @@ def doc_bridge_runs(text: str, known_titles: Optional[set]) -> List[tuple]:
     paired with its frozen token set. `_prep_and_dispatch_hop2` caches this
     per doc id — re-deriving it per (query, text) pair was the dominant
     host cost of the iterative mode (~20 texts x B=2048 extractions per
-    batch; measured 2.4k -> 7k+ q/s iterative with the cache)."""
+    batch)."""
     out = []
     for e in capitalized_runs(text or ""):
         if e in _QUESTION_WORDS:
@@ -171,10 +171,10 @@ def iterative_retrieve_pipelined(
     merge — so the device queue always holds the NEXT batch's hop-1
     program while the host does bridge extraction / merging for the
     previous one. The hop-2 stage (hop-1 fetch + bridge extraction +
-    hop-2 dispatch, the dominant ~100ms of per-batch host work) runs on
+    hop-2 dispatch, the dominant per-batch host work) runs on
     a single worker thread: the caller thread's fetch/merge waits release
     the GIL, so the prep genuinely overlaps — the same one-in-flight
-    prep-ahead discipline as `TPUQueryEngine.query_batches_pipelined`
+    prep-ahead discipline as `QueryEngine.query_batches_pipelined`
     (where a 2nd worker measurably LOST to GIL contention). Yields one
     ``(ids, scores, norms, diagnostics)`` tuple per input batch, in order.
     """
@@ -332,7 +332,7 @@ def _prep_and_dispatch_hop2(
     # when the engine prunes queries, have the native stage emit the
     # hop-2 variants ALREADY pruned (prune_query semantics in C++) and
     # dispatch with prepruned=True — the engine-side re-prune of B
-    # queries (+ expansions) was ~16ms of the per-batch host budget
+    # queries (+ expansions) sat on the per-batch host budget
     hd = getattr(engine, "_high_df_terms", None)
     prepruned = bool(
         nb is not None and hd
@@ -358,7 +358,7 @@ def _prep_and_dispatch_hop2(
     hop2_expansions: List[List[str]] = []
     active: List[bool] = []
     # one C-speed conversion instead of B*hop1_inspect numpy-scalar int()
-    # casts inside the loop (~20ms of the per-batch host budget)
+    # casts inside the loop
     ids_rows = ids1[:, :hop1_inspect].tolist()
     for b, q in enumerate(queries):
         if native_out is not None and native_out[b] is not None:
@@ -432,7 +432,7 @@ def _prep_and_dispatch_hop2(
     if prepruned:
         kw["prepruned"] = True
     # narrower hop-2 pool (EngineConfig.hop2_pool_k); only added when set
-    # so duck-typed / sharded engines without the kwarg stay compatible
+    # so duck-typed engines without the kwarg stay compatible
     hop2_pool = getattr(getattr(engine, "config", None), "hop2_pool_k", None)
     if hop2_pool is not None:
         kw["pool_k"] = int(hop2_pool)
@@ -520,8 +520,8 @@ def _merge_hop2(
 ):
     """Stage 3: decay + reserve-aware max-merge of hop-2 into hop-1.
 
-    Fully vectorized (185ms -> ~27ms per B=2048 batch — at 3.5k q/s
-    pipelined the python dict merge was on the critical host path).
+    Fully vectorized: the python dict merge sat on the critical host
+    path of the pipelined loop.
     Semantics oracle: `_merge_hop2_py`, asserted equal in tests including
     exact score ties (both implementations break ties by ascending id, so
     results are deterministic and identical).

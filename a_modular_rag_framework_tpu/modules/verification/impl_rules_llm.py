@@ -7,7 +7,7 @@ impl_rules_llm.py:16-573:
   - LLM channel: sc_runs forced-JSON fact-checks, verdict->score fallback
     map, majority verdict + agreement rate, secondary-fact penalty;
   - FEVER-style claim-check: stub labels by default; when an external claim
-    retriever is wired (the TPU query engine), each claim is re-retrieved
+    retriever is wired (the device query engine), each claim is re-retrieved
     and labeled supported / not_enough_info by evidence overlap — the
     claims then drive the orchestrator's retry-retrieval loop;
   - hallucination-risk map; weighted final score; fine verdict map

@@ -1,4 +1,4 @@
-from .topk import dense_topk, dense_topk_pallas, dense_topk_xla
+from .topk import dense_topk, dense_topk_xla
 from .bm25 import bm25_scores, Bm25DeviceIndex
 from .graph import expand_frontier, hop_decay_table
 from .fusion import fuse_channels, minmax_normalize
@@ -7,7 +7,6 @@ __all__ = [
     "Bm25DeviceIndex",
     "bm25_scores",
     "dense_topk",
-    "dense_topk_pallas",
     "dense_topk_xla",
     "expand_frontier",
     "fuse_channels",

@@ -201,8 +201,8 @@ class Bm25DeviceIndex:
 
     def doc_major_padded(self, doc_cap: int = 64) -> Tuple[np.ndarray, np.ndarray]:
         """Fixed-stride doc-major view: (terms [N, D] int32 -2-padded,
-        scores [N, D] f32). Row gathers on this layout are contiguous —
-        ~40x faster than per-doc dynamic slices on TPU. Docs with more than
+        scores [N, D] f32). Row gathers on this layout are contiguous,
+        unlike per-doc dynamic slices. Docs with more than
         ``doc_cap`` distinct terms keep their HIGHEST-contribution terms."""
         key = ("_doc_major_padded", doc_cap)
         cached = getattr(self, "_dmp_cache", None)
@@ -241,11 +241,9 @@ class Bm25DeviceIndex:
         }
         # interleaved (doc_id, bitcast(score)) pairs so phase-1's posting
         # window gather is ONE take of 8-byte rows instead of two 4-byte
-        # gathers (the gather is per-element-overhead-bound on TPU:
-        # 6.9ms -> ~half for 2MB of windows at B=2048). Derived at load,
-        # not part of the disk format; auto-skip above 256MB of postings
-        # (the duplicate would cost ~1.6GB of HBM at fullwiki scale for a
-        # ~3ms/batch win).
+        # gathers. Derived at load, not part of the disk format;
+        # auto-skip above 256MB of postings (the duplicate would cost
+        # ~1.6GB of device memory at fullwiki scale).
         if packed_postings is None:
             packed_postings = self.doc_ids.size * 8 <= (256 << 20)
         if packed_postings:
@@ -270,12 +268,11 @@ def bm25_topk_sorted(
 ) -> Tuple[jax.Array, jax.Array]:
     """Scatter-free BM25 pool selection: (pool scores [B,K], pool ids [B,K]).
 
-    The TPU-fast path (the scatter formulation serializes on TPU — measured
-    ~10ns/element): gather each query-term occurrence's top-``term_topm``
+    The scatter-free path (the scatter formulation is the parity
+    oracle): gather each query-term occurrence's top-``term_topm``
     postings (they're stored contribution-descending), concatenate a
-    query's E*T windows, SORT by doc id, segment-sum equal-id runs with a
-    cumsum + running-max-scan (all VPU ops), and take the top ``pool_k``
-    run totals. Variants are max-merged by a second sort over (doc,
+    query's E*T windows, SORT by doc id, sum equal-id runs with T shifted
+    adds (elementwise ops), and take the top ``pool_k`` run totals. Variants are max-merged by a second sort over (doc,
     -variant_score) ... here simplified: variants concatenate and the merge
     uses per-variant sums followed by a cross-variant max on the shared
     sorted axis.
@@ -290,10 +287,32 @@ def bm25_topk_sorted(
     ``term_weights`` (optional) scales each query term occurrence's gathered
     contributions — the learned-sparse (SPLADE) scorer rides this seam:
     score(q, d) = sum_t w_q(t) * impact(t, d) with the posting arrays
-    holding doc-side impacts. Weights must be >= 0 (the run-base cummax
-    relies on nondecreasing cumulative sums). None = BM25 behavior,
-    bit-identical to before the seam existed.
+    holding doc-side impacts. Weights must be >= 0 (a zero total marks an
+    empty slot). None = BM25 behavior.
     """
+    v_s, v_docs = bm25_variant_pools(
+        term_ids, doc_ids, contribs, row_ptr, n_docs=n_docs,
+        term_topm=term_topm, pool_k=pool_k, posting_packed=posting_packed,
+        term_weights=term_weights)
+    return merge_variant_pools(v_s, v_docs, n_docs=n_docs, pool_k=pool_k)
+
+
+def bm25_variant_pools(
+    term_ids: jax.Array,
+    doc_ids: jax.Array,
+    contribs: jax.Array,
+    row_ptr: jax.Array,
+    *,
+    n_docs: int,
+    term_topm: int,
+    pool_k: int,
+    posting_packed: Optional[jax.Array] = None,
+    term_weights: Optional[jax.Array] = None,
+) -> Tuple[jax.Array, jax.Array]:
+    """First half of `bm25_topk_sorted`: each query variant's own top
+    ``min(pool_k, T * term_topm)`` docs by window total -> (scores, ids),
+    both [B, E, K], ordered (score desc, id asc); empty slots hold score 0
+    and id ``n_docs``."""
     B, E, T = term_ids.shape
     N = n_docs
     m = term_topm
@@ -305,7 +324,7 @@ def bm25_topk_sorted(
     lengths = jnp.minimum(row_ptr[t_safe + 1] - starts, m)
 
     # flat gather at starts+iota: vmap(dynamic_slice) lowers to per-window
-    # slices that run ~2x slower than one big gather on TPU
+    # slices instead of one big gather
     j = jnp.arange(m, dtype=jnp.int32)[None, :]
     win_idx = starts[:, None] + j
     in_range = (j < lengths[:, None]) & valid[:, None]
@@ -337,40 +356,47 @@ def bm25_topk_sorted(
     c_q = c_w.reshape(B * E, W)
 
     # sort by doc id; aggregate equal runs. One variadic sort carrying the
-    # contributions as payload (order within an equal-id run is irrelevant
-    # — runs are summed), instead of argsort + 2 row-gathers.
-    docs_s, c_s = jax.lax.sort((docs_q, c_q), dimension=1, num_keys=1)
+    # contributions as payload, instead of argsort + 2 row-gathers. The
+    # sort is stable, so a run keeps its query-term slot order.
+    docs_s, c_s = jax.lax.sort((docs_q, c_q), dimension=1, num_keys=1,
+                               is_stable=True)
 
-    boundary = jnp.concatenate(
-        [jnp.ones((B * E, 1), dtype=jnp.bool_), docs_s[:, 1:] != docs_s[:, :-1]],
-        axis=1,
-    )
-    c_cum = jnp.cumsum(c_s, axis=1)
-    # each run's base = c_cum just BEFORE the run start, propagated across
-    # the run by a value cummax: contributions are >= 0 (the Lucene-style
-    # idf has +1 inside the log, so it is always positive), hence c_cum is
-    # nondecreasing and the most recent boundary's value IS the row max so
-    # far. One cummax replaces the positional associative_scan +
-    # take_along_axis of the earlier formulation, bit-identically (the
-    # subtraction operand is the same c_cum[start-1] value either way).
-    prev_cum = jnp.concatenate(
-        [jnp.zeros((B * E, 1), dtype=c_cum.dtype), c_cum[:, :-1]], axis=1
-    )
-    base = jax.lax.cummax(jnp.where(boundary, prev_cum, 0.0), axis=1)
-    run_total = c_cum - base
+    # run totals: a doc occurs at most once per term window, so its run is
+    # at most T long, and the total at the run's last entry is the sum of
+    # the T entries ending there that share its id, added in slot order
+    # from zero — the order `bm25_rescore_pool` adds them in. The totals
+    # are thus bit-identical to the exact re-score wherever the windows
+    # hold all of a doc's terms, and independent of the rest of the row
+    # (a prefix-sum difference would round by the row's other docs, so a
+    # shard's row and the whole corpus's would select different pools).
+    run_total = jnp.zeros_like(c_s)
+    for j in range(T - 1, -1, -1):
+        d_j = jnp.pad(docs_s[:, :W - j], ((0, 0), (j, 0)),
+                      constant_values=-1)
+        c_j = jnp.pad(c_s[:, :W - j], ((0, 0), (j, 0)))
+        run_total = run_total + jnp.where(d_j == docs_s, c_j, 0.0)
     is_run_end = jnp.concatenate(
         [docs_s[:, 1:] != docs_s[:, :-1], jnp.ones((B * E, 1), dtype=jnp.bool_)],
         axis=1,
     )
     score_at = jnp.where(is_run_end & (docs_s < N), run_total, 0.0)
 
-    # per-variant top pool, then max-merge variants by doc id (another
-    # sort+segment-max over the E*pool_k union)
+    # per-variant top pool; ties keep the lower doc id (rows are id-sorted)
     K = min(pool_k, W)
     v_s, v_pos = jax.lax.top_k(score_at, K)
     v_docs = jnp.take_along_axis(docs_s, v_pos, axis=1)
     v_docs = jnp.where(v_s > 0, v_docs, N)
+    return v_s.reshape(B, E, K), v_docs.reshape(B, E, K)
 
+
+def merge_variant_pools(v_s: jax.Array, v_docs: jax.Array, *, n_docs: int,
+                        pool_k: int) -> Tuple[jax.Array, jax.Array]:
+    """Second half of `bm25_topk_sorted`: max-merge the variants' pools
+    ([B, E, K] from `bm25_variant_pools`) by doc id (a sort + segment-max
+    over the E*K union) and keep the top ``pool_k`` -> (scores, ids),
+    ids -1 where the score is 0."""
+    B, E, K = v_s.shape
+    N = n_docs
     u_docs = v_docs.reshape(B, E * K)
     u_s = v_s.reshape(B, E * K)
     if E > 1:
@@ -403,6 +429,22 @@ def bm25_topk_sorted(
     return top_s, top_d
 
 
+def canonical_pool_order(pool_s: jax.Array, pool_i: jax.Array
+                         ) -> Tuple[jax.Array, jax.Array]:
+    """Order a candidate pool by (score desc, id asc), invalid entries
+    (score <= 0 or id < 0) last. Phase-1 leaves the pool in the order of
+    its own float sums, whose rounding depends on how many candidates a
+    row holds; downstream selections that break ties by position (the
+    graph seeds) must not inherit that, or a row-sharded pool and the
+    one-device pool would seed differently at exact score ties."""
+    valid = (pool_s > 0) & (pool_i >= 0)
+    k1 = jnp.where(valid, -pool_s, jnp.inf)
+    k2 = jnp.where(valid, pool_i, jnp.iinfo(jnp.int32).max)
+    _, _, pool_s, pool_i = jax.lax.sort((k1, k2, pool_s, pool_i),
+                                        dimension=1, num_keys=2)
+    return pool_s, pool_i
+
+
 def bm25_rescore_pool(
     pool_i: jax.Array,  # [B, K] int32 candidate doc rows, -1 padded
     term_ids: jax.Array,  # [B, E, T] int32 query term occurrences, -1 padded
@@ -415,11 +457,11 @@ def bm25_rescore_pool(
     """EXACT BM25 scores [B, K] for the candidate pool (max over variants).
 
     Phase 2 of the scatter-free design: gather each candidate doc's
-    fixed-stride term row (contiguous row gather — per-doc dynamic slices
-    measured 40x slower) and sum the contributions of terms that occur in
+    fixed-stride term row (one contiguous row gather instead of per-doc
+    dynamic slices) and sum the contributions of terms that occur in
     the query — each query-term OCCURRENCE counts (duplicate terms score
-    twice, reference _score_doc semantics). Pure vectorized compares on the
-    VPU, no scatter, no [N]-sized buffers.
+    twice, reference _score_doc semantics). Pure vectorized compares, no
+    scatter, no [N]-sized buffers.
 
     Exact for docs whose distinct-term count fits the padded stride; longer
     docs keep their highest-contribution terms (see doc_major_padded).
@@ -442,7 +484,7 @@ def bm25_rescore_pool(
     # loop over the T query-term slots with a [B, E, K] accumulator: each
     # step is a small [B, E, K, D] compare + masked reduce, which XLA fuses;
     # the single-shot [B,K,D,E,T] broadcast materialized >100MB and dominated
-    # the engine, and searchsorted lowers to sequential loops on TPU.
+    # the engine.
     def body(t, acc):
         tid_t = jax.lax.dynamic_index_in_dim(term_ids, t, axis=2,
                                              keepdims=False)  # [B, E]

@@ -140,9 +140,8 @@ def fuse_pools_compact(
     # int32 key is safe: ids < 2^30 (1B rows) leaves room for the flag bit.
     # (id, flag) is unique per row (each pool holds distinct ids), so ONE
     # variadic sort carrying all payloads replaces argsort + 5
-    # take_along_axis gathers with identical results (measured on v5e at
-    # B=2048, P=G=200: fusion 76ms -> 29ms incl. dispatch RTT — the sort
-    # is one HLO and the payloads ride it instead of 5 row-gathers). The
+    # take_along_axis gathers with identical results (the sort is one HLO
+    # and the payloads ride it instead of 5 row-gathers). The
     # sorted ids are recovered from the key by a shift rather than riding
     # as an extra payload column.
     key = sort_ids * 2 + flag

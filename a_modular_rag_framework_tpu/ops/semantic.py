@@ -2,7 +2,7 @@
 
 Replaces the reference's O(n^2) python-pairs cosine loop
 (edge_builder.py:146-169) with one batched program: normalize the sentence
-embedding matrix, compute E_n @ E_n^T on the MXU, threshold, and (optionally)
+embedding matrix, compute E_n @ E_n^T in one matmul, threshold, and (optionally)
 keep only the top-k strongest partners per node. Host code extracts the
 surviving (i, j, sim) triplets for graph assembly.
 """

@@ -84,7 +84,7 @@ class SpladeDeviceIndex:
 
 
 def splade_engine_arrays(index: SpladeDeviceIndex, doc_top_terms: int):
-    """Engine-shaped device dict for `TPUQueryEngine`'s text channel
+    """Engine-shaped device dict for `QueryEngine`'s text channel
     (same keys as `Bm25DeviceIndex.device_arrays`): term-major CSR postings
     plus the doc-major padded layout the exact re-score phase gathers.
 

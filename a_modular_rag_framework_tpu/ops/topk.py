@@ -1,26 +1,25 @@
-"""Fused dense-similarity + top-k — the north-star query kernel.
+"""Dense-similarity + top-k over a full corpus embedding matrix.
 
 Replaces the reference's DenseReranker (per-candidate pure-python cosine,
-retrieval_backend.py:186-247) with a single device program:
+retrieval_backend.py:186-247) with one device program:
 
   scores, ids = top_k(Q @ D^T)       Q: [B, d] queries, D: [N, d] corpus
 
-Two interchangeable implementations (oracle-tested against each other):
+Three implementations, oracle-tested against each other:
 
-- `dense_topk_xla`: jnp.dot + jax.lax.top_k. XLA materializes the [B, N]
-  score matrix in HBM — fine for small corpora and the parity oracle.
-- `dense_topk_pallas`: tiles the corpus over a sequential Pallas grid and
-  keeps a SORTED running top-k in VMEM scratch, so the full score matrix
-  never round-trips to HBM. The matmul rides the MXU per tile; the merge
-  is threshold-gated insertion (only candidates beating the current k-th
-  value enter; expected insertions across the corpus ~ k*ln(n_tiles),
-  not k*n_tiles). HBM traffic drops from O(B*N) to O(N*d + B*K). The
-  fastest EXACT dense path measured (52ms vs exact-XLA's 77ms at
-  B=1024/N=131k/d=512/k=100); `dense_topk_approx` remains faster still
-  (38ms) at 0.979 overlap and stays the production default.
+- `dense_topk_xla`: one matmul + ``lax.top_k``. XLA materializes the
+  [B, N] score matrix in device memory. The exact oracle.
+- `dense_topk_exact_tiled`: the same scores, selected in two levels — a
+  ``top_k`` per corpus tile, then one over the tile winners. Exact by
+  construction; each sort sees N/n_tiles keys instead of N.
+- `dense_topk_approx`: matmul + ``lax.approx_max_k``. On the GPU and the
+  CPU XLA lowers that op to its exact sort fallback, so it returns the
+  exact top-k.
 
-Corpus rows may be bf16 (index storage dtype); accumulation is f32 via
-``preferred_element_type``.
+Corpus rows may be bf16 (the index storage dtype). The matmul precision is
+named on every product (`_scores`): bf16 corpora multiply in bf16 with f32
+accumulation; f32 corpora multiply at ``HIGHEST`` so that a GPU does not
+round the operands to TF32.
 """
 from __future__ import annotations
 
@@ -29,237 +28,33 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-NEG_INF = -1e30  # plain float: jnp scalars can't be captured by pallas kernels
+NEG_INF = -1e30
 
 
-# ---------------- XLA reference path ----------------
+def _scores(q: jax.Array, d: jax.Array, precision) -> jax.Array:
+    """[B, N] f32 inner products. ``precision=None`` picks it from the
+    corpus dtype: bf16 rows take bf16 queries at ``DEFAULT`` (bf16
+    products, f32 accumulation); anything else runs at ``HIGHEST``."""
+    if precision is None:
+        if d.dtype == jnp.bfloat16:
+            q, precision = q.astype(jnp.bfloat16), jax.lax.Precision.DEFAULT
+        else:
+            precision = jax.lax.Precision.HIGHEST
+    return jax.lax.dot_general(
+        q, d, dimension_numbers=(((1,), (1,)), ((), ())),
+        precision=precision, preferred_element_type=jnp.float32,
+    )
 
 
 @functools.partial(jax.jit, static_argnames=("k", "precision"))
 def dense_topk_xla(
     q: jax.Array, d: jax.Array, k: int, precision=None
 ) -> Tuple[jax.Array, jax.Array]:
-    """Return (scores [B, k] f32, ids [B, k] i32) of the top-k inner products.
-
-    ``precision=None`` uses the backend default (bf16 multiplies on the MXU —
-    the production setting); pass ``jax.lax.Precision.HIGHEST`` for exact-f32
-    oracle comparisons.
-    """
-    scores = jax.lax.dot_general(
-        q, d, dimension_numbers=(((1,), (1,)), ((), ())),
-        precision=precision, preferred_element_type=jnp.float32,
-    )
-    top_s, top_i = jax.lax.top_k(scores, k)
+    """Return (scores [B, k] f32, ids [B, k] i32) of the top-k inner
+    products: the exact oracle."""
+    top_s, top_i = jax.lax.top_k(_scores(q, d, precision), k)
     return top_s.astype(jnp.float32), top_i.astype(jnp.int32)
-
-
-# ---------------- Pallas fused path ----------------
-
-
-def _iterative_topk(scores: jax.Array, ids: jax.Array, k: int) -> Tuple[jax.Array, jax.Array]:
-    """K-step max-extraction over axis 1 (VPU-friendly, no sort).
-
-    scores: [B, M] f32, ids: [B, M] i32 -> ([B, k], [B, k]).
-    """
-    B, M = scores.shape
-    col = jax.lax.broadcasted_iota(jnp.int32, (B, M), 1)
-    col_k = jax.lax.broadcasted_iota(jnp.int32, (B, k), 1)
-
-    def body(i, carry):
-        s, out_s, out_i = carry
-        cur = jnp.max(s, axis=1)
-        arg = jnp.argmax(s, axis=1).astype(jnp.int32)
-        mask = col == arg[:, None]
-        # masked-min instead of gather, one-hot writes instead of dynamic
-        # slice updates: Mosaic lowers neither gather nor value-level
-        # dynamic_update_slice.
-        picked_id = jnp.min(jnp.where(mask, ids, jnp.int32(0x7FFFFFFF)), axis=1)
-        sel = col_k == i
-        out_s = jnp.where(sel, cur[:, None], out_s)
-        out_i = jnp.where(sel, picked_id[:, None], out_i)
-        s = jnp.where(mask, NEG_INF, s)
-        return s, out_s, out_i
-
-    out_s = jnp.full((B, k), NEG_INF, dtype=jnp.float32)
-    out_i = jnp.full((B, k), -1, dtype=jnp.int32)
-    _, out_s, out_i = jax.lax.fori_loop(0, k, body, (scores, out_s, out_i))
-    return out_s, out_i
-
-
-def _topk_kernel(q_ref, d_ref, out_s_ref, out_i_ref, run_s, run_i, sm_ref, *,
-                 k: int, kp: int, tile_n: int, n_valid: int,
-                 precision=None, compute_dtype=None):
-    """One (batch tile, corpus tile) step: scores = q_tile @ d_tile^T,
-    merged into a SORTED running top-k via threshold-gated insertion.
-
-    Grid is (batch tiles, corpus tiles); the corpus dimension is the fast
-    axis and executes sequentially on a TPU core, so scratch accumulates
-    across corpus tiles and flushes on the last one, then resets when the
-    batch tile advances.
-
-    The merge is the part that made round-2's kernel lose to stock XLA
-    (a k-step max-extraction over [B, k+tile_n] on EVERY tile =
-    O(k*tile_n) VPU work per tile, dwarfing the matmul). Here the running
-    top-k stays sorted descending, the k-th column is a per-row threshold,
-    and a while_loop inserts ONE improving candidate per row per
-    iteration — rows advance in parallel, and the loop exits the moment no
-    row in the block improves. Expected iterations across the whole corpus
-    ~ k·ln(n_tiles) (top-k turnover of a random stream), vs k·n_tiles
-    before; tiles that beat nothing cost one compare pass.
-    """
-    t = pl.program_id(1)
-    nt = pl.num_programs(1)
-
-    @pl.when(t == 0)
-    def _init():
-        run_s[:] = jnp.full_like(run_s, NEG_INF)
-        run_i[:] = jnp.full_like(run_i, -1)
-
-    if compute_dtype is not None:
-        q = q_ref[:].astype(compute_dtype)
-        d = d_ref[:].astype(compute_dtype)
-    else:
-        q = q_ref[:].astype(jnp.float32)
-        d = d_ref[:].astype(jnp.float32)
-    scores = jax.lax.dot_general(
-        q, d, dimension_numbers=(((1,), (1,)), ((), ())),
-        precision=precision, preferred_element_type=jnp.float32,
-    )  # [B, tile_n]
-    B = scores.shape[0]
-    tile_ids = jax.lax.broadcasted_iota(jnp.int32, (B, tile_n), 1) + t * tile_n
-    # padded corpus rows (>= n_valid) must never win, even against real
-    # candidates with negative inner products: kill them here, not post-hoc
-    scores = jnp.where(tile_ids < n_valid, scores, NEG_INF)
-
-    col = jax.lax.broadcasted_iota(jnp.int32, (B, tile_n), 1)
-    slot = jax.lax.broadcasted_iota(jnp.int32, (B, kp), 1)
-
-    # Candidate pool lives in VMEM scratch (picked/dead entries drop to
-    # NEG_INF); the while carry is ONE scalar — Mosaic cannot legalize
-    # large vector (esp. i1-mask) carries through scf.while, and refs keep
-    # the state resident anyway. Each while ROUND extracts up to E
-    # candidates per row through a statically-unrolled ladder (the
-    # per-round scalar sync was the measured cost when one candidate moved
-    # per iteration: ~8k synced iterations -> 52ms; E=8 cuts rounds ~8x
-    # and lets Mosaic pipeline the ladder).
-    E = 8
-    sm_ref[:] = jnp.where(scores > run_s[:, k - 1][:, None], scores, NEG_INF)
-
-    def insert_once(_unused):
-        s_m = sm_ref[:]
-        rs = run_s[:]
-        cur = jnp.max(s_m, axis=1)                      # [B]
-        arg = jnp.argmax(s_m, axis=1).astype(jnp.int32)  # first max -> id order
-        picked = col == arg[:, None]
-        cand_id = jnp.min(jnp.where(picked, tile_ids, jnp.int32(0x7FFFFFFF)),
-                          axis=1)
-        has = cur > rs[:, k - 1]                        # rows that improve
-        # sorted insertion AFTER existing equals (>=): candidates arrive in
-        # ascending id order (first-max argmax within a tile, tiles in id
-        # order), so equal values keep ascending ids — lax.top_k's tie
-        # order. Slots < pos keep, slot == pos takes the candidate, slots
-        # > pos shift right by one.
-        pos = jnp.sum((rs >= cur[:, None]).astype(jnp.int32), axis=1)
-        ins = (slot == pos[:, None]) & has[:, None]
-        keep = (slot < pos[:, None]) | (~has[:, None])
-        new_s = jnp.where(keep, rs, jnp.where(ins, cur[:, None],
-                                              jnp.roll(rs, 1, axis=1)))
-        new_i = jnp.where(keep, run_i[:],
-                          jnp.where(ins, cand_id[:, None],
-                                    jnp.roll(run_i[:], 1, axis=1)))
-        run_s[:] = new_s
-        run_i[:] = new_i
-        # drop the picked column; entries at or below the (risen) k-th
-        # threshold can never insert again
-        sm_ref[:] = jnp.where(picked | ~(s_m > new_s[:, k - 1][:, None]),
-                              NEG_INF, s_m)
-
-    def round_body(_):
-        for _step in range(E):
-            insert_once(None)
-        return jnp.any(sm_ref[:] > NEG_INF)
-
-    jax.lax.while_loop(
-        lambda go: go, round_body,
-        jnp.any(sm_ref[:] > NEG_INF))
-
-    @pl.when(t == nt - 1)
-    def _flush():
-        out_s_ref[:] = run_s[:]
-        out_i_ref[:] = run_i[:]
-
-
-@functools.partial(jax.jit, static_argnames=("k", "tile_n", "tile_b",
-                                             "precision", "compute_dtype"))
-def dense_topk_pallas(
-    q: jax.Array, d: jax.Array, k: int, tile_n: int = 1024,
-    tile_b: int = 256, precision=None, compute_dtype=None,
-) -> Tuple[jax.Array, jax.Array]:
-    """Fused matmul+top-k without materializing [B, N] scores in HBM.
-
-    Pads N up to a tile multiple; padded rows are masked to NEG_INF inside
-    the kernel (by global row id), so they can never beat real candidates —
-    including real candidates with negative inner products. Batch is tiled
-    too (``tile_b``) so the in-kernel merge buffer stays inside VMEM for
-    arbitrarily large B. The running top-k is padded to a lane-aligned
-    width (kp, multiple of 128) and sliced back to k at the end.
-
-    ``compute_dtype="bfloat16"`` casts both operands for the MXU's fast
-    path (accumulation stays f32) — the production setting for the probe;
-    leave None for f32-exact oracle comparisons.
-    """
-    B, dim = q.shape
-    N = d.shape[0]
-    if k > N:
-        raise ValueError(f"k={k} > corpus size {N}")
-    kp = -(-k // 128) * 128  # lane-aligned running-top-k width
-    n_pad = (-N) % tile_n
-    if n_pad:
-        d = jnp.concatenate([d, jnp.zeros((n_pad, dim), dtype=d.dtype)], axis=0)
-    n_tiles = d.shape[0] // tile_n
-    tile_b = min(tile_b, B)
-    b_pad = (-B) % tile_b
-    if b_pad:
-        q = jnp.concatenate([q, jnp.zeros((b_pad, dim), dtype=q.dtype)], axis=0)
-    b_tiles = q.shape[0] // tile_b
-
-    out_s, out_i = pl.pallas_call(
-        functools.partial(_topk_kernel, k=k, kp=kp, tile_n=tile_n, n_valid=N,
-                          precision=precision, compute_dtype=compute_dtype),
-        grid=(b_tiles, n_tiles),
-        in_specs=[
-            pl.BlockSpec((tile_b, dim), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_n, dim), lambda b, t: (t, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile_b, kp), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_b, kp), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((q.shape[0], kp), jnp.float32),
-            jax.ShapeDtypeStruct((q.shape[0], kp), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((tile_b, kp), jnp.float32),
-            pltpu.VMEM((tile_b, kp), jnp.int32),
-            pltpu.VMEM((tile_b, tile_n), jnp.float32),  # live candidate pool
-        ],
-    )(q, d)
-    out_s = out_s[:B, :k]
-    out_i = out_i[:B, :k]
-
-    # belt-and-braces: padded rows already scored NEG_INF in-kernel
-    valid = out_i < N
-    out_s = jnp.where(valid, out_s, NEG_INF)
-    out_i = jnp.where(valid, out_i, -1)
-    return out_s, out_i
 
 
 @functools.partial(jax.jit, static_argnames=("k", "n_tiles", "precision"))
@@ -271,14 +66,12 @@ def dense_topk_exact_tiled(
 
     Exact by construction — any global top-k element is inside its own
     tile's top-k — while each sort runs over N/n_tiles keys instead of N
-    (XLA lowers full-width ``top_k`` to a per-row sort whose cost grows
-    super-linearly in row length; the second-level sort sees only
-    n_tiles*k keys). Pure stock XLA: no kernel, no VMEM tuning, and the
-    [B, N] score matrix still materializes once (same as exact-XLA), so
-    this targets the sort cost specifically. Tie-breaking: ids within a
-    tile are ascending (lax.top_k is stable), but ties ACROSS tiles
-    resolve by tile order of equal scores — same set, possibly different
-    id order than single-level top_k at exact score ties.
+    (the second-level sort sees only n_tiles*k keys). The [B, N] score
+    matrix still materializes once, as in `dense_topk_xla`, so this
+    targets the selection cost only. Tie-breaking: ids within a tile are
+    ascending (lax.top_k is stable), but ties ACROSS tiles resolve by tile
+    order of equal scores — same set, possibly different id order than
+    single-level top_k at exact score ties.
     """
     B = q.shape[0]
     N = d.shape[0]
@@ -287,10 +80,7 @@ def dense_topk_exact_tiled(
         # tiling the pad columns would silently surface as ids >= N instead
         raise ValueError(f"k={k} exceeds corpus rows N={N}")
     pad = (-N) % n_tiles
-    scores = jax.lax.dot_general(
-        q, d, dimension_numbers=(((1,), (1,)), ((), ())),
-        precision=precision, preferred_element_type=jnp.float32,
-    )
+    scores = _scores(q, d, precision)
     if pad:
         scores = jnp.pad(scores, ((0, 0), (0, pad)),
                          constant_values=NEG_INF)
@@ -310,40 +100,13 @@ def dense_topk_exact_tiled(
 def dense_topk_approx(
     q: jax.Array, d: jax.Array, k: int, recall_target: float = 0.95
 ) -> Tuple[jax.Array, jax.Array]:
-    """Matmul + hardware approx_max_k: the PRODUCTION dense path.
-
-    Measured at B=1024, N=131k, d=512, k=100 on one v5e (round 3):
-    38-43ms here vs 77ms exact-XLA and 52ms for the Pallas kernel.
-    The Pallas kernel is the fastest EXACT path (1.5x exact-XLA; its
-    round-2 k-step-extraction predecessor ran 124ms), but this
-    approximate path (overlap 0.979 with the exact top-100) still holds
-    the throughput crown, so it remains the engine default and the
-    Pallas kernel serves where exactness is required.
-    """
-    scores = jax.lax.dot_general(
-        q, d, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    top_s, top_i = jax.lax.approx_max_k(scores, k,
+    """Matmul + ``lax.approx_max_k``. On the GPU and the CPU XLA lowers
+    approx_max_k to an exact sort, so this equals `dense_topk_xla`."""
+    top_s, top_i = jax.lax.approx_max_k(_scores(q, d, None), k,
                                         recall_target=recall_target)
     return top_s.astype(jnp.float32), top_i.astype(jnp.int32)
 
 
-def dense_topk(
-    q: jax.Array,
-    d: jax.Array,
-    k: int,
-    *,
-    use_pallas: str | bool = "auto",
-    tile_n: int = 1024,
-    interpret_ok: bool = False,
-) -> Tuple[jax.Array, jax.Array]:
-    """Dispatch: "approx" (matmul + hardware approx_max_k — fastest on
-    TPU at large k), Pallas (HBM-minimal, exact), XLA (exact oracle)."""
-    if use_pallas == "approx":
-        return dense_topk_approx(q, d, k)
-    if use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and (jax.default_backend() == "tpu" or interpret_ok):
-        return dense_topk_pallas(q, d, k, tile_n=tile_n)
-    return dense_topk_xla(q, d, k)
+# The engine's full-corpus dense top-k: single-level XLA measured faster
+# than the two-level path at the engine's shapes on the GPU (PERF.md).
+dense_topk = dense_topk_xla

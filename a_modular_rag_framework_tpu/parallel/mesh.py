@@ -1,10 +1,11 @@
 """Device mesh construction.
 
 The reference has no parallelism of any kind (SURVEY.md §2b); this module is
-the new-design obligation: a `jax.sharding.Mesh` over the slice's devices,
+the new-design obligation: a `jax.sharding.Mesh` over the host's devices,
 with the corpus sharded over the ``data`` axis and model weights optionally
-sharded over ``model``. Collectives ride ICI within the slice; DCN axes are
-reserved for future multi-slice scale-out.
+sharded over ``model``. The cards of one host are joined all to all, so
+every device pair costs the same and the mesh's shape follows the
+algorithm alone: axis order carries no topology.
 """
 from __future__ import annotations
 
@@ -53,10 +54,10 @@ def build_mesh(
 def mesh_from_settings(settings: Dict[str, Any]) -> Mesh:
     """Mesh from the settings ``mesh:`` section.
 
-    ``dcn_axes`` (multi-slice scale-out) compose OUTERMOST — collectives
-    over the inner ``axes`` then ride ICI within a slice while the DCN
-    axes see only slice-boundary traffic (replicated index per slice; DP
-    over queries across slices). On a single slice leave it empty.
+    ``dcn_axes`` compose OUTERMOST as query-data-parallel axes: the index
+    is replicated across them and the query batch splits over them, so
+    every collective of the retrieval program names only the inner
+    ``axes``. Leave it empty to shard the index over every device.
     """
     mesh_cfg = settings.get("mesh") or {}
     axes = dict(mesh_cfg.get("axes") or {"data": -1})

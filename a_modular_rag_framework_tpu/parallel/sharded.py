@@ -3,8 +3,7 @@
 The index-sharding design of SURVEY.md §2b: the corpus embedding matrix is
 row-sharded across devices (`NamedSharding` on axis 0); queries are
 replicated; each device computes a local fused matmul+top-k over its shard;
-per-shard candidates are merged into global top-k with one `all_gather`
-over ICI. No [B, N] score matrix ever exists, on any chip.
+per-shard candidates are merged into global top-k with one `all_gather`. No [B, N] score matrix ever exists, on any chip.
 """
 from __future__ import annotations
 
@@ -15,7 +14,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops.topk import dense_topk_xla, _iterative_topk  # noqa: F401
+from ..ops.topk import dense_topk_xla
 
 
 def shard_corpus_rows(emb, mesh: Mesh, axis: str = "data"):
@@ -137,7 +136,7 @@ def sharded_splade_topk(
 
     Per shard: windowed posting scoring (`ops.bm25.bm25_topk_sorted` with
     per-term query weights) over the LOCAL CSR -> local top-k -> ids
-    offset to global rows -> `all_gather` over ICI -> merge. Only s*k
+    offset to global rows -> `all_gather` -> merge. Only s*k
     candidates move between chips. Exact vs the single-chip scorer
     whenever term_topm covers each term's local posting lists (same
     windowing contract as single-chip)."""

@@ -2,7 +2,7 @@
 
 The scale-out path of SURVEY.md §2b: corpus embeddings row-sharded over the
 ``data`` mesh axis, queries replicated, per-shard fused top-k merged with
-one all_gather over ICI (`parallel.sharded.sharded_dense_topk`). On one
+one all_gather (`parallel.sharded.sharded_dense_topk`). On one
 host this runs across the virtual CPU mesh for testing; on a pod slice the
 same code spans real chips.
 

@@ -4,11 +4,13 @@ SURVEY.md §2b names index sharding "the parallelism that actually matters
 here"; round 1 sharded only the dense channel. This engine shards ALL THREE
 channels of the hybrid program over the ``data`` mesh axis:
 
-- **BM25**: the CSR postings are split by document row range — each shard
-  holds the postings of its own rows (contribution order preserved), runs
-  the scatter-free phase-1 pool selection + EXACT doc-major re-score
-  locally, and the per-shard pools merge into the global pool with one
-  ``all_gather`` (s * pool_k candidates per query, never [B, N]).
+- **BM25**: each term's phase-1 window (its first ``term_topm`` postings
+  over the whole corpus) is split by document row range — each shard
+  holds its rows' share of every window, runs the scatter-free phase-1
+  selection locally, and each query variant's per-shard pools merge with
+  one ``all_gather`` (s * pool_k candidates per variant, never [B, N]);
+  the merged pool is re-scored exactly on the shards that own its ids
+  and assembled with a ``psum``.
 - **dense**: each shard scores the global pool ids it owns against its
   local embedding rows; a ``psum`` assembles the full pool cosine vector
   (each id is owned by exactly one shard, so the sum is exact).
@@ -24,14 +26,14 @@ Tie-breaking matches the single-chip engine: per-shard pools are ordered
 merged ``top_k`` resolves equal scores by ascending global id — the same
 order the single-chip sort produces.
 
-Exactness: phase-1 BM25 windows run over LOCAL postings, so each term
-contributes up to ``term_topm`` candidates PER SHARD — a superset of the
-single-chip window. With ``term_topm`` >= the longest posting list both
-paths are exact and agree bit-for-bit (asserted by tests and the driver's
-``dryrun_multichip``). Note the single-chip engine selects its graph pool
-with approx_max_k at n > 4096 unless ``graph_pool_exact`` is set — this
-engine is always exact, so bit-for-bit claims above that size require
-``graph_pool_exact=True`` on the single-chip side.
+Exactness: the shards see exactly the single-chip windows, phase-1 sums
+each doc's window contributions in the same order, and the merge keeps
+each variant's corpus-wide top pool, so the BM25 pool is the single-chip
+pool at any ``term_topm`` and ``qe_variants`` (asserted by tests and
+``dryrun_multichip``). The single-chip engine selects its graph pool
+with approx_max_k at n > 4096 unless ``graph_pool_exact`` is set; XLA
+lowers that to an exact sort on the GPU and the CPU, the same selection
+this engine makes.
 
 Memory: index rows (embeddings, CSR, doc tables, adjacency) are fully
 sharded — per-chip residency is N/s rows. The graph channel follows
@@ -57,10 +59,11 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.dto import HitBatch
-from ..engine.query_engine import EngineConfig, QueryResult
+from ..engine.query_engine import DENSE_PRECISION, EngineConfig, QueryResult
 from ..index.packed import PackedIndex
 from ..models.hash_embed import HashEmbedEncoder
-from ..ops.bm25 import bm25_rescore_pool, bm25_topk_sorted
+from ..ops.bm25 import (bm25_rescore_pool, bm25_variant_pools,
+                        canonical_pool_order, merge_variant_pools)
 from ..ops.fusion import fuse_pools_compact, reorder_hits
 from ..ops.graph import (expand_frontier_weighted_compact_core,
                          hop_decay_table)
@@ -69,13 +72,18 @@ from .mesh import build_mesh
 
 def shard_hybrid_arrays(index: PackedIndex, n_shards: int,
                         *, doc_cap: int = 64,
-                        include_entity: bool = True) -> Dict[str, np.ndarray]:
+                        include_entity: bool = True,
+                        term_window: Optional[int] = None
+                        ) -> Dict[str, np.ndarray]:
     """Split the packed index into per-shard host arrays.
 
     Row arrays ([N, ...]) are padded to a shard multiple and sharded on
     axis 0; the CSR is re-cut per document range and stacked on a leading
-    shard axis (postings keep their contribution-descending order within
-    each term, so per-shard term_topm windows behave like the global ones).
+    shard axis, postings in their contribution-descending order within
+    each term. ``term_window`` keeps only each term's first
+    ``term_window`` postings of the whole corpus (the one-device engine's
+    phase-1 window), so a shard's postings of a term are exactly its share
+    of that window.
     """
     bm = index.bm25
     N = index.n_docs
@@ -83,7 +91,7 @@ def shard_hybrid_arrays(index: PackedIndex, n_shards: int,
     n_pad = -(-max(N, 1) // n_shards) * n_shards
     n_local = n_pad // n_shards
 
-    # ---- embeddings (normalized exactly like TPUQueryEngine.__init__) ----
+    # ---- embeddings (normalized exactly like QueryEngine.__init__) ----
     emb = np.asarray(index.embeddings)
     if index.embed_dtype == "bfloat16" and emb.dtype == np.uint16:
         emb = np.asarray(jnp.asarray(emb).view(jnp.bfloat16).astype(jnp.float32))
@@ -106,6 +114,10 @@ def shard_hybrid_arrays(index: PackedIndex, n_shards: int,
     row_ptr = np.asarray(bm.row_ptr, dtype=np.int64)
     term_of = (np.repeat(np.arange(V), np.diff(row_ptr))
                if doc_ids.size else np.zeros(0, dtype=np.int64))
+    if term_window is not None and doc_ids.size:
+        rank = np.arange(doc_ids.size) - row_ptr[term_of]
+        keep = rank < term_window
+        doc_ids, scores, term_of = doc_ids[keep], scores[keep], term_of[keep]
 
     csr_ids: List[np.ndarray] = []
     csr_scores: List[np.ndarray] = []
@@ -158,11 +170,11 @@ def shard_hybrid_arrays(index: PackedIndex, n_shards: int,
 
 
 class ShardedHybridEngine:
-    """Multi-chip hybrid serving: same query semantics as `TPUQueryEngine`,
+    """Multi-chip hybrid serving: same query semantics as `QueryEngine`,
     index rows sharded over the mesh's ``data`` axis."""
 
     CHANNELS = ("text", "graph", "dense")
-    # same prepruned contract as TPUQueryEngine.query_batch_async
+    # same prepruned contract as QueryEngine.query_batch_async
     _supports_prepruned = True
 
     def __init__(
@@ -183,9 +195,8 @@ class ShardedHybridEngine:
         # mesh_from_settings) become data-parallel over the query batch:
         # the index is replicated per dcn group (P(axis) leaves extra mesh
         # dims unsharded), the batch splits across groups, and every
-        # collective inside the program names only ``axis`` so cross-shard
-        # merges ride ICI within a slice while DCN carries zero
-        # mid-program traffic — the multi-slice design of SURVEY §2b.
+        # collective inside the program names only ``axis``, so the dcn
+        # axes carry no mid-program traffic.
         self.dp_axes = tuple(a for a in self.mesh.axis_names if a != axis)
         self._dp_size = int(np.prod([self.mesh.shape[a]
                                      for a in self.dp_axes], dtype=np.int64)
@@ -195,10 +206,15 @@ class ShardedHybridEngine:
         self._n = index.n_docs
 
         n_shards = self.mesh.shape[axis]
+        # the one-device engine's phase-1 window (QueryEngine._program)
+        nnz = int(np.asarray(index.bm25.doc_ids).shape[0])
+        self._term_topm = max(min(self.config.bm25_term_topm,
+                                  self.config.bm25_posting_cap, nnz), 1)
         host = shard_hybrid_arrays(
             index, n_shards,
             doc_cap=self.config.bm25_doc_cap,
             include_entity=self.config.include_entity_graph,
+            term_window=self._term_topm,
         )
         self._n_local = host["n_local"]
         self._n_pad = host["n_pad"]
@@ -223,7 +239,7 @@ class ShardedHybridEngine:
         except Exception:
             self._native_vocab = None
         # idf-guided query pruning — shared helper, same rule as
-        # TPUQueryEngine
+        # QueryEngine
         from ..engine.query_engine import build_high_df_terms
 
         self._high_df_terms = build_high_df_terms(
@@ -233,7 +249,7 @@ class ShardedHybridEngine:
     def n_shards(self) -> int:
         return self.mesh.shape[self.axis]
 
-    # ---- host prep (shared helpers — same code as TPUQueryEngine) ----
+    # ---- host prep (shared helpers — same code as QueryEngine) ----
 
     def _bucket(self, b: int) -> int:
         from ..engine.query_engine import pick_bucket
@@ -262,28 +278,29 @@ class ShardedHybridEngine:
         alphas = jnp.asarray(
             [cfg.alpha_text, cfg.alpha_graph, cfg.alpha_dense], jnp.float32)
         decay = jnp.asarray(hop_decay_table(max(window, 0)))
-        topm = min(cfg.bm25_term_topm,
-                   max(int(self._arr["csr_doc_ids"].shape[1]), 1))
-        # graph formulation — mirrors TPUQueryEngine's rule (fusion here is
+        topm = self._term_topm
+        # graph formulation — mirrors QueryEngine's rule (fusion here is
         # always pool-compact, so only the buffer-size condition applies)
         if cfg.graph_impl not in ("auto", "dense", "compact"):
             raise ValueError(f"unknown graph_impl {cfg.graph_impl!r}")
         use_compact_graph = cfg.graph_impl == "compact" or (
             cfg.graph_impl == "auto" and B * n * 4 > 256 << 20)
 
-        def merge_pools(local_s, local_i):
-            """all_gather per-shard pools -> global top pool_k (replicated).
+        def merge_variant_shards(v_s, v_i, K):
+            """all_gather each variant's per-shard pool ([b, E, K_local],
+            global ids) -> the variant's top K over the corpus (replicated).
 
-            Ties resolve by ascending global id: shards concatenate in row
-            order and each shard's pool is already (score desc, id asc)."""
-            b_loc = local_s.shape[0]  # dcn DP: local block, not the bucket
-            all_s = jax.lax.all_gather(local_s, axis)  # [s, b_loc, P]
-            all_i = jax.lax.all_gather(local_i, axis)
-            cat_s = jnp.moveaxis(all_s, 0, 1).reshape(b_loc, -1)
-            cat_i = jnp.moveaxis(all_i, 0, 1).reshape(b_loc, -1)
-            top_s, pos = jax.lax.top_k(cat_s, pool_k)
-            top_i = jnp.take_along_axis(cat_i, pos, axis=1)
-            return top_s, top_i
+            A shard's top K holds every one of its docs in the corpus-wide
+            top K, so this is the one-device selection. Ties resolve by
+            ascending global id: shards concatenate in row order and each
+            shard's pool is already (score desc, id asc)."""
+            b_loc, E_loc, _ = v_s.shape  # dcn DP: local block, not the bucket
+            all_s = jax.lax.all_gather(v_s, axis)  # [s, b, E, K_local]
+            all_i = jax.lax.all_gather(v_i, axis)
+            cat_s = jnp.moveaxis(all_s, 0, 2).reshape(b_loc, E_loc, -1)
+            cat_i = jnp.moveaxis(all_i, 0, 2).reshape(b_loc, E_loc, -1)
+            top_s, pos = jax.lax.top_k(cat_s, min(K, cat_s.shape[2]))
+            return top_s, jnp.take_along_axis(cat_i, pos, axis=2)
 
         def local_fn(q_emb, term_ids, seed_rows, csr_ids, csr_sc, csr_rp,
                      emb_l, dt_l, ds_l, nbrs_l):
@@ -294,25 +311,26 @@ class ShardedHybridEngine:
             sh = jax.lax.axis_index(axis).astype(jnp.int32)
             lo = sh * n_local
 
-            # ---- text: local pool + exact local re-score, global merge ----
-            p_s, p_i = bm25_topk_sorted(
+            # ---- text: the one-device phase-1 selection, per shard then
+            # merged per variant; exact re-score where each id lives ----
+            v_s, v_i = bm25_variant_pools(
                 term_ids, csr_ids[0], csr_sc[0], csr_rp[0],
                 n_docs=n_local, term_topm=topm, pool_k=min(pool_k, n_local),
             )
-            pad = min(pool_k, n_local) - p_s.shape[1]
+            v_i = jnp.where(v_i < n_local, v_i + lo, n)
+            v_s, v_i = merge_variant_shards(
+                v_s, v_i, min(pool_k, term_ids.shape[2] * topm))
+            pool_s, pool_i = merge_variant_pools(v_s, v_i, n_docs=n,
+                                                 pool_k=pool_k)
+            pad = pool_k - pool_s.shape[1]
             if pad > 0:
-                p_s = jnp.pad(p_s, ((0, 0), (0, pad)))
-                p_i = jnp.pad(p_i, ((0, 0), (0, pad)), constant_values=-1)
-            p_s = bm25_rescore_pool(p_i, term_ids, dt_l, ds_l, n_docs=n_local)
-            lvalid = (p_s > 0) & (p_i >= 0)
-            gl_i = jnp.where(lvalid, p_i + lo, -1)
-            # pad per-shard pools up to pool_k before the merge
-            pad2 = pool_k - p_s.shape[1]
-            ls = jnp.where(lvalid, p_s, 0.0)
-            if pad2 > 0:
-                ls = jnp.pad(ls, ((0, 0), (0, pad2)))
-                gl_i = jnp.pad(gl_i, ((0, 0), (0, pad2)), constant_values=-1)
-            pool_s, pool_i = merge_pools(ls, gl_i)
+                pool_i = jnp.pad(pool_i, ((0, 0), (0, pad)),
+                                 constant_values=-1)
+            owned = (pool_i >= lo) & (pool_i < lo + n_local)
+            pool_s = jax.lax.psum(jnp.where(owned, bm25_rescore_pool(
+                jnp.where(owned, pool_i - lo, -1), term_ids, dt_l, ds_l,
+                n_docs=n_local), 0.0), axis)
+            pool_s, pool_i = canonical_pool_order(pool_s, pool_i)
             pool_valid = (pool_s > 0) & (pool_i >= 0)
 
             # ---- dense: score owned pool ids locally, psum-assemble ----
@@ -323,12 +341,13 @@ class ShardedHybridEngine:
             pool_emb = jnp.take(emb_l, local_rows, axis=0)  # [B, P, d]
             dense = jnp.einsum("bd,bkd->bk", qn,
                                pool_emb.astype(jnp.float32),
+                               precision=DENSE_PRECISION,
                                preferred_element_type=jnp.float32)
             dense_pool = jax.lax.psum(jnp.where(owned, dense, 0.0), axis)
 
             # ---- graph: compact N-independent path ----
             if use_compact_graph:
-                # compact seeds, exactly as TPUQueryEngine's compact branch
+                # compact seeds, exactly as QueryEngine's compact branch
                 if seeds_explicit:
                     c_seed_ids = seed_rows
                     c_seed_vals = (seed_rows >= 0).astype(jnp.float32)
@@ -415,7 +434,7 @@ class ShardedHybridEngine:
             # graph_wave_dtype="bfloat16" rounds the wave at the SAME points
             # as the single-chip batched formulation (cast once before the
             # hops; maxes in wdt), so both paths stay bit-for-bit — and the
-            # per-hop all_gather moves half the ICI bytes
+            # per-hop all_gather moves half the bytes
             wdt = jnp.dtype(cfg.graph_wave_dtype)
             wave = wave.astype(wdt)
             for h in range(1, max(window, 0) + 1):
@@ -469,7 +488,7 @@ class ShardedHybridEngine:
         self._jit_cache[key] = fn
         return fn
 
-    # ---- public API (mirrors TPUQueryEngine.query_batch) ----
+    # ---- public API (mirrors QueryEngine.query_batch) ----
 
     def query_batch(self, queries: Sequence[str], **kw) -> QueryResult:
         """Synchronous query: dispatch + fetch in one call."""
@@ -479,7 +498,7 @@ class ShardedHybridEngine:
 
     def query_batches_pipelined(self, batches: Sequence[Sequence[str]], **kw):
         """Prep-ahead pipelining (same contract + threading discipline as
-        TPUQueryEngine.query_batches_pipelined): a worker thread preps and
+        QueryEngine.query_batches_pipelined): a worker thread preps and
         dispatches batch i+1 while the caller blocks fetching batch i."""
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
@@ -506,11 +525,15 @@ class ShardedHybridEngine:
         graph_window: Optional[int] = None,
         trace_id: str = "",
         prepruned: bool = False,
+        pool_k: Optional[int] = None,
     ) -> "Any":
         """Dispatch the sharded program without blocking on the fetch.
 
         ``prepruned=True``: the caller already applied ``prune_query``
-        (native hop-2 bridge emission) — skip the re-prune."""
+        (native hop-2 bridge emission) — skip the re-prune.
+        ``pool_k`` overrides ``cfg.pool_k`` for this dispatch, with
+        `QueryEngine.query_batch_async`'s semantics (the iterative
+        mode's hop-2 program rides it)."""
         from ..engine.query_engine import PendingQuery
 
         cfg = self.config
@@ -527,7 +550,8 @@ class ShardedHybridEngine:
         k = min(int(top_k or cfg.top_k), self._n)
         window = (cfg.graph_window if graph_window is None
                   else max(0, int(graph_window)))
-        pool_k = min(cfg.pool_k, self._n)
+        pool_k = min(int(pool_k or cfg.pool_k), self._n)
+        pool_k = max(pool_k, k)  # the pool must at least cover the output
         B = self._bucket(B_real)
         if B % self._dp_size:
             # dcn DP splits the batch dim across groups — pad the bucket up
@@ -641,7 +665,7 @@ def dryrun_check(mesh: Mesh) -> None:
     scores, in both derived-seed and explicit-seed modes. Called from
     ``__graft_entry__._dryrun_impl`` and tests/test_sharded_hybrid.py.
     """
-    from ..engine.query_engine import TPUQueryEngine
+    from ..engine.query_engine import QueryEngine
     from ..index.builder import build_packed_index
 
     corpus, queries = _tie_free_corpus()
@@ -662,7 +686,7 @@ def dryrun_check(mesh: Mesh) -> None:
             kw.update(alpha_text=0.15, alpha_graph=0.7, alpha_dense=0.15,
                       order_alphas=order)
         cfg = EngineConfig(**kw)
-        single = TPUQueryEngine(idx, config=cfg)
+        single = QueryEngine(idx, config=cfg)
         sharded = ShardedHybridEngine(idx, mesh=mesh, config=cfg)
 
         def check(kw, mode):

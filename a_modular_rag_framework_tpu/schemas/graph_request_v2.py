@@ -5,25 +5,29 @@ request shape accepted by the v1->v2 adapter (`adapters.graph_request_adapter`).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
-from pydantic import BaseModel, Field
+from ..core.dto import _Model, _items
 
 
-class Sentence(BaseModel):
+@dataclass(kw_only=True)
+class Sentence(_Model):
     id: str
     text: str
-    meta: Dict[str, Any] = Field(default_factory=dict)
+    meta: Dict[str, Any] = field(default_factory=dict)
 
 
-class Inputs(BaseModel):
-    sentences: List[Sentence] = Field(default_factory=list)
-    nodes: List[Dict[str, Any]] = Field(default_factory=list)
-    edges: List[Dict[str, Any]] = Field(default_factory=list)
+@dataclass(kw_only=True)
+class Inputs(_Model):
+    sentences: List[Sentence] = _items(Sentence)
+    nodes: List[Dict[str, Any]] = field(default_factory=list)
+    edges: List[Dict[str, Any]] = field(default_factory=list)
 
 
-class AssembleGraphRequestV2(BaseModel):
+@dataclass(kw_only=True)
+class AssembleGraphRequestV2(_Model):
     api_version: str = "v2"
     graph_id: str
-    inputs: Inputs = Field(default_factory=Inputs)
-    options: Dict[str, Any] = Field(default_factory=dict)
+    inputs: Inputs = field(default_factory=Inputs, metadata={"model": Inputs})
+    options: Dict[str, Any] = field(default_factory=dict)

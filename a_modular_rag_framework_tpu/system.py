@@ -3,7 +3,7 @@
 Parity with /root/reference/app/system.py:13-59 — ``init_system`` wires
 config -> providers -> router -> engine -> modules -> workflow, and
 ``answer_question`` runs one Q&A with trace lifecycle + artifact
-finalization. TPU addition: the packed index / query engine is built once
+finalization. Addition: the packed index / query engine is built once
 here and shared by retrieval, graph bootstrap, and the verifier's
 claim-check retriever; ``init_system`` results are cached so batch drivers
 don't re-initialize (and re-upload the index) per question.
@@ -26,7 +26,7 @@ from .telemetry.sinks import (
     record_run_start,
 )
 
-DEFAULT_SETTINGS_PATH = "config/settings.yaml"
+DEFAULT_SETTINGS_PATH = "config/settings.json"
 
 _SYSTEM_CACHE: Dict[str, Tuple[Any, Any]] = {}
 _NODE_CTX_CACHE: Dict[str, Any] = {}

@@ -2,7 +2,7 @@
 LLM/metric/run events, latency breakdown, Mermaid trace rendering.
 
 Event-schema parity with /root/reference/app/telemetry/sinks.py:48-235, with
-one TPU-native addition: ``device_timing`` events carrying per-kernel device
+one addition: ``device_timing`` events carrying per-kernel device
 wall time (fed by `engine` via `jax.block_until_ready` timing and, when
 profiling is enabled, `jax.profiler` traces).
 
@@ -148,7 +148,7 @@ def record_device_timing(
     shape: Optional[str] = None,
     backend: Optional[str] = None,
 ) -> None:
-    """TPU-native addition: per-kernel device timing into the event stream."""
+    """Addition: per-kernel device timing into the event stream."""
     if sink is None:
         return
     sink.record(

@@ -32,8 +32,7 @@ def _is_cap_word(tok: str) -> bool:
 
 
 # ASCII fast path: one compiled regex matches a whole run at once instead
-# of walking every token in Python (the loop below costs ~11us per short
-# query — 22ms of a 2048-query batch's host budget; this regex ~2ms).
+# of walking every token in Python.
 # A cap word = upper initial + at least one lowercase somewhere
 # ("McDonald", "ABc"); runs extend over " Word", " D. Word", " D Word"
 # segments so middle initials ride along exactly like the general loop.

@@ -1,4 +1,4 @@
-// text_native — native host-path runtime for the TPU RAG framework.
+// text_native — native host-path runtime for the RAG framework.
 //
 // The device path is JAX/XLA/Pallas; this library owns the host hot loops
 // around it: tokenization, hash featurization (the mock/feature encoder's

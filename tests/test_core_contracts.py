@@ -42,6 +42,15 @@ def test_import_from_string_both_forms():
     assert cls1 is cls2 is Hit
 
 
+@pytest.mark.parametrize("spec", [
+    "a_modular_rag_framework_tpu.core.no_such_module:Hit",
+    "a_modular_rag_framework_tpu.core.dto:NoSuchClass"])
+def test_import_from_string_names_the_failing_entry(spec):
+    with pytest.raises(ImportError, match="CHANGES.md") as e:
+        import_from_string(spec)
+    assert spec in str(e.value)
+
+
 def test_parse_module_spec_three_forms():
     # string form
     spec, kw = parse_module_spec({"m": "pkg.mod:Cls"}, "m", "d:D")
@@ -174,7 +183,7 @@ def test_synthetic_dataset_deterministic_and_solvable():
 
 def test_build_providers_and_router_from_settings(settings):
     providers = build_providers(settings)
-    assert "mock" in providers and "tpu_embed" in providers
+    assert "mock" in providers and "local_embed" in providers
     router = build_router(settings, providers)
     vecs = router.embed(texts=["the quick brown fox", "the quick brown fox jumps"])
     v = np.array(vecs)

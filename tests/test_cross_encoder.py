@@ -89,7 +89,7 @@ def test_save_load_roundtrip(tmp_path):
 
 
 def test_backend_cross_rerank_stage(tmp_path):
-    """TPUHybridRetrievalBackend with cross_rerank_weights reorders its
+    """EngineRetrievalBackend with cross_rerank_weights reorders its
     top-m by cross-encoder score and records the stage in diagnostics;
     hit SET is unchanged vs the same backend without reranking."""
     from a_modular_rag_framework_tpu.core.dataset_loader import (
@@ -98,8 +98,8 @@ def test_backend_cross_rerank_stage(tmp_path):
     from a_modular_rag_framework_tpu.core.dto import RetrievalIn
     from a_modular_rag_framework_tpu.index.builder import build_packed_index
     from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
-    from a_modular_rag_framework_tpu.modules.retrieval.tpu_backend import (
-        TPUHybridRetrievalBackend,
+    from a_modular_rag_framework_tpu.modules.retrieval.engine_backend import (
+        EngineRetrievalBackend,
     )
 
     samples = SyntheticHotpotQALoader({"count": 24, "seed": 5}).load()
@@ -110,9 +110,9 @@ def test_backend_cross_rerank_stage(tmp_path):
     ship_cfg = CrossEncoderConfig(subword_ngrams=2)
     CrossEncoderReranker(ship_cfg, seed=3).save(str(w))
 
-    base = TPUHybridRetrievalBackend(index=idx, batch_buckets=(8,),
+    base = EngineRetrievalBackend(index=idx, batch_buckets=(8,),
                                      iterative_hops=1)
-    rer = TPUHybridRetrievalBackend(index=idx, batch_buckets=(8,),
+    rer = EngineRetrievalBackend(index=idx, batch_buckets=(8,),
                                     iterative_hops=1,
                                     cross_rerank_weights=str(w),
                                     cross_rerank_top_m=10,

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
-from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
 from a_modular_rag_framework_tpu.index.builder import build_packed_index
 from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
 from a_modular_rag_framework_tpu.models.hash_embed import hash_embed_numpy, tokenize
@@ -30,7 +30,8 @@ def packed():
 def hybrid_oracle(corpus_texts, query, variants, seeds, window, pool_k, k,
                   alphas=(0.4, 0.2, 0.4), nbrs=None):
     """Host reimplementation of the engine semantics (reference fusion rules)."""
-    from tests.test_ops import bm25_oracle, bfs_decay_oracle
+    from a_modular_rag_framework_tpu.eval.host_reference import bm25_oracle
+    from tests.test_ops import bfs_decay_oracle
 
     n = len(corpus_texts)
     text = bm25_oracle(corpus_texts, variants, merge="max")
@@ -78,7 +79,7 @@ def test_engine_matches_hybrid_oracle(packed):
     # scatter impl: shares the oracle's exact tie ordering (the synthetic
     # corpus has large score ties at the pool boundary; the sorted impl
     # resolves them differently — covered by its own test below)
-    engine = TPUQueryEngine(
+    engine = QueryEngine(
         idx,
         config=EngineConfig(top_k=10, pool_k=50, graph_window=2,
                             include_entity_graph=False, batch_buckets=(1, 4),
@@ -106,7 +107,7 @@ def test_engine_matches_hybrid_oracle(packed):
 
 
 def _sf_recall(idx, samples, cfg):
-    engine = TPUQueryEngine(idx, config=cfg)
+    engine = QueryEngine(idx, config=cfg)
     by = idx.corpus.row_by_title_sid()
     hit, total = 0, 0
     for s in samples:
@@ -136,7 +137,7 @@ def test_sorted_bm25_pipeline_scores_exact(packed):
     idx, samples = packed
     dev = idx.bm25.device_arrays()
     n = idx.n_docs
-    engine = TPUQueryEngine(idx, config=EngineConfig(batch_buckets=(4,)))
+    engine = QueryEngine(idx, config=EngineConfig(batch_buckets=(4,)))
     _, term_ids = engine.encode_queries(
         [[s["question"]] for s in samples[:4]], n_variants=1
     )
@@ -150,6 +151,10 @@ def test_sorted_bm25_pipeline_scores_exact(packed):
     rs = np.asarray(bm25_rescore_pool(pd, tid, dev["doc_terms_padded"],
                                       dev["doc_scores_padded"], n_docs=n))
     ps, pd = np.asarray(ps), np.asarray(pd)
+    # the windows hold every posting here, so phase-1's run totals are the
+    # exact re-score bit for bit: the pool a row selects cannot depend on
+    # the other docs in the row (a shard's row vs the whole corpus's)
+    np.testing.assert_array_equal(ps[pd >= 0], rs[pd >= 0])
     for b in range(4):
         for phase1, exact, d in zip(ps[b], rs[b], pd[b]):
             if d >= 0:
@@ -173,7 +178,7 @@ def test_sorted_bm25_packed_gather_bit_identical(packed):
     dev = idx.bm25.device_arrays(packed_postings=True)
     assert "posting_packed" in dev
     n = idx.n_docs
-    engine = TPUQueryEngine(idx, config=EngineConfig(batch_buckets=(4,)))
+    engine = QueryEngine(idx, config=EngineConfig(batch_buckets=(4,)))
     _, term_ids = engine.encode_queries(
         [[s["question"]] for s in samples[:4]], n_variants=1
     )
@@ -197,8 +202,8 @@ def test_dense_matmul_impl_matches_pool_scores(packed):
     qs = [s["question"] for s in samples[:8]]
     base = dict(top_k=10, pool_k=64, graph_window=2, bm25_term_topm=4096,
                 batch_buckets=(8,), graph_wave_dtype="float32")
-    e_p = TPUQueryEngine(idx, config=EngineConfig(dense_impl="pool", **base))
-    e_m = TPUQueryEngine(idx, config=EngineConfig(dense_impl="matmul", **base))
+    e_p = QueryEngine(idx, config=EngineConfig(dense_impl="pool", **base))
+    e_m = QueryEngine(idx, config=EngineConfig(dense_impl="matmul", **base))
     r_p = e_p.query_batch(qs)
     r_m = e_m.query_batch(qs)
     np.testing.assert_allclose(np.asarray(r_m.hits.scores),
@@ -215,7 +220,7 @@ def test_dense_matmul_impl_matches_pool_scores(packed):
 
 def test_dense_matmul_rejected_with_compact_graph(packed):
     idx, samples = packed
-    eng = TPUQueryEngine(idx, config=EngineConfig(
+    eng = QueryEngine(idx, config=EngineConfig(
         dense_impl="matmul", graph_impl="compact", batch_buckets=(4,),
         graph_compact_cap=64))
     with pytest.raises(ValueError, match="compact"):
@@ -244,7 +249,7 @@ def test_engine_retrieves_supporting_facts(packed):
 
 def test_engine_batching_and_padding(packed):
     idx, _ = packed
-    engine = TPUQueryEngine(idx, config=EngineConfig(top_k=5, pool_k=20,
+    engine = QueryEngine(idx, config=EngineConfig(top_k=5, pool_k=20,
                                                      batch_buckets=(4,)))
     res = engine.query_batch(["Alden", "Brisa", "Corin"])  # B=3 -> bucket 4
     assert res.hits.ids.shape == (3, 5)
@@ -253,12 +258,12 @@ def test_engine_batching_and_padding(packed):
 
 def test_engine_empty_query_and_empty_index(packed):
     idx, _ = packed
-    engine = TPUQueryEngine(idx, config=EngineConfig(batch_buckets=(1,)))
+    engine = QueryEngine(idx, config=EngineConfig(batch_buckets=(1,)))
     res = engine.query_batch([""])
     assert (np.asarray(res.hits.ids) == -1).all() or res.hits.ids.shape[0] == 1
 
     empty_idx = build_packed_index(SentenceCorpus(docs=[]), embed_dim=8)
-    engine2 = TPUQueryEngine(empty_idx)
+    engine2 = QueryEngine(empty_idx)
     res2 = engine2.query_batch(["anything"])
     assert res2.diagnostics.get("empty_index") is True
     assert (np.asarray(res2.hits.ids) == -1).all()
@@ -266,7 +271,7 @@ def test_engine_empty_query_and_empty_index(packed):
 
 def test_engine_hydration(packed):
     idx, samples = packed
-    engine = TPUQueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1,)))
+    engine = QueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1,)))
     res = engine.query_batch([samples[0]["question"]])
     hits = engine.hydrate_hits(res, 0, extra_meta={"source": "engine"})
     assert hits and hits[0].id.startswith("sent::")
@@ -310,7 +315,7 @@ def test_build_mesh_shapes():
 def test_dense_only_query(packed):
     """Pure-dense brute-force retrieval over the full corpus (config 2)."""
     idx, samples = packed
-    engine = TPUQueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1, 4)))
+    engine = QueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1, 4)))
     res = engine.query_dense_batch([samples[0]["question"]], top_k=5)
     ids = np.asarray(res.hits.ids)[0]
     scores = np.asarray(res.hits.scores)[0]
@@ -332,7 +337,7 @@ def test_sharded_dense_engine_matches_single_chip(packed):
     idx, samples = packed
     sharded = ShardedDenseEngine(idx, batch_buckets=(4,))
     assert sharded.n_shards == 8
-    single = TPUQueryEngine(idx, config=EngineConfig(batch_buckets=(4,)))
+    single = QueryEngine(idx, config=EngineConfig(batch_buckets=(4,)))
     qs = [s["question"] for s in samples[:3]]
     hb = sharded.query_batch(qs, top_k=7)
     rd = single.query_dense_batch(qs, top_k=7)
@@ -348,7 +353,7 @@ def test_sharded_dense_engine_matches_single_chip(packed):
 def test_long_query_term_truncation(packed):
     """Queries longer than max_query_terms truncate cleanly (T bucketing)."""
     idx, samples = packed
-    engine = TPUQueryEngine(idx, config=EngineConfig(top_k=5, max_query_terms=32,
+    engine = QueryEngine(idx, config=EngineConfig(top_k=5, max_query_terms=32,
                                                      batch_buckets=(1,)))
     long_q = " ".join(tokenize(samples[0]["question"]) * 10)  # ~80 terms
     res = engine.query_batch([long_q])
@@ -360,7 +365,7 @@ def test_query_df_pruning(tmp_path):
     """IDF-guided query pruning: high-df tokens drop, rare ones stay, and
     a query of only high-df tokens falls back to the original."""
     from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
-    from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+    from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
     from a_modular_rag_framework_tpu.index.builder import build_packed_index
     from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
 
@@ -368,7 +373,7 @@ def test_query_df_pruning(tmp_path):
                                        "unique_entities": True}).load()
     idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
                              embed_dim=32, embed_dtype="float32")
-    engine = TPUQueryEngine(idx, config=EngineConfig(
+    engine = QueryEngine(idx, config=EngineConfig(
         top_k=5, pool_k=32, graph_window=1, batch_buckets=(8,),
         query_df_ratio_max=0.05))
     assert engine._high_df_terms and "born" in engine._high_df_terms
@@ -382,7 +387,7 @@ def test_query_df_pruning(tmp_path):
     r = engine.query_batch([q], top_k=5)
     assert (r.hits.ids >= 0).any()
 
-    off = TPUQueryEngine(idx, config=EngineConfig(
+    off = QueryEngine(idx, config=EngineConfig(
         top_k=5, pool_k=32, graph_window=1, batch_buckets=(8,)))
     assert off._high_df_terms is None
     assert off._prune_query(q) == q
@@ -403,8 +408,8 @@ def test_graph_impl_compact_matches_dense_both_seed_modes():
     # default is bfloat16 — see EngineConfig.graph_wave_dtype)
     base = dict(top_k=10, pool_k=64, graph_window=2, bm25_term_topm=4096,
                 batch_buckets=(32,), graph_wave_dtype="float32")
-    e_d = TPUQueryEngine(idx, config=EngineConfig(graph_impl="dense", **base))
-    e_c = TPUQueryEngine(idx, config=EngineConfig(
+    e_d = QueryEngine(idx, config=EngineConfig(graph_impl="dense", **base))
+    e_c = QueryEngine(idx, config=EngineConfig(
         graph_impl="compact", graph_compact_cap=2048, **base))
 
     r_d = e_d.query_batch(qs, top_k=10)
@@ -427,7 +432,7 @@ def test_graph_impl_compact_matches_dense_both_seed_modes():
 
 def test_graph_impl_compact_requires_compact_fusion(packed):
     idx, _ = packed
-    eng = TPUQueryEngine(idx, config=EngineConfig(
+    eng = QueryEngine(idx, config=EngineConfig(
         graph_impl="compact", fusion_impl="dense", batch_buckets=(8,)))
     with pytest.raises(ValueError, match="compact"):
         eng.query_batch(["anything"])

@@ -117,7 +117,7 @@ def test_phrase_tokens_rescue_colliding_names():
     )
     from a_modular_rag_framework_tpu.engine.query_engine import (
         EngineConfig,
-        TPUQueryEngine,
+        QueryEngine,
     )
     from a_modular_rag_framework_tpu.eval.harness import (
         evaluate_retrieval,
@@ -149,7 +149,7 @@ def test_phrase_tokens_rescue_colliding_names():
     qs = [s["question"] for s in samples]
 
     def both_recalls(idx):
-        eng = TPUQueryEngine(idx, config=cfg)
+        eng = QueryEngine(idx, config=cfg)
         r1 = evaluate_retrieval(eng, samples, k=10, batch_size=48)
         ids = np.asarray(iterative_retrieve(eng, qs, top_k=10)[0])
         recs = [recall_at_k([eng.index.corpus.hit_id(int(i))

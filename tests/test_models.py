@@ -102,8 +102,8 @@ def test_backend_loads_trained_encoder_weights(tmp_path):
     from a_modular_rag_framework_tpu.core.dto import RetrievalIn
     from a_modular_rag_framework_tpu.index.builder import build_packed_index
     from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus, write_docs_jsonl
-    from a_modular_rag_framework_tpu.modules.retrieval.tpu_backend import (
-        TPUHybridRetrievalBackend,
+    from a_modular_rag_framework_tpu.modules.retrieval.engine_backend import (
+        EngineRetrievalBackend,
     )
     from a_modular_rag_framework_tpu.models.encoder import EncoderConfig, TextEncoder
 
@@ -117,7 +117,7 @@ def test_backend_loads_trained_encoder_weights(tmp_path):
     docs = tmp_path / "docs.jsonl"
     write_docs_jsonl(corpus.docs, docs)
 
-    backend = TPUHybridRetrievalBackend(
+    backend = EngineRetrievalBackend(
         index_path=str(docs), embed_dim=32, encoder_weights=str(weights),
         encoder_layers=1, iterative_hops=1,
     )

@@ -91,7 +91,7 @@ def test_segmenter_rule_and_embed():
 def test_edge_builder_channels_and_vote():
     nb = NodeBuilder(enable_segmentation=False)
     nodes = [n.model_dump() for n in nb.build(QUESTION, CONTEXT, {})]
-    # settings.yaml policy: vote fusion on, but no min-vote pruning
+    # settings.json policy: vote fusion on, but no min-vote pruning
     eb = EdgeBuilder(semantic_threshold=0.99,
                      assembly_policy={"channels": {"q_overlap": 1.0,
                                                    "embed_sim": 1.0,

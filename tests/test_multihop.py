@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 
 from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
-from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
 from a_modular_rag_framework_tpu.index.builder import build_packed_index
 from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
 from a_modular_rag_framework_tpu.modules.retrieval.multihop import (
@@ -18,7 +18,7 @@ def setup():
     samples = SyntheticHotpotQALoader({"count": 20, "seed": 5}).load()
     corpus = SentenceCorpus.from_hotpotqa(samples)
     idx = build_packed_index(corpus, embed_dim=64, embed_dtype="float32")
-    engine = TPUQueryEngine(idx, config=EngineConfig(top_k=20, pool_k=100,
+    engine = QueryEngine(idx, config=EngineConfig(top_k=20, pool_k=100,
                                                      graph_window=2,
                                                      batch_buckets=(16,)))
     return engine, samples
@@ -209,12 +209,12 @@ def test_vectorized_merge_pads_when_hits_narrower_than_top_k():
 def test_iterative_backend_hits_tagged(setup):
     """The hybrid backend with iterative_hops=2 returns hydrated hits."""
     from a_modular_rag_framework_tpu.core.dto import RetrievalIn
-    from a_modular_rag_framework_tpu.modules.retrieval.tpu_backend import (
-        TPUHybridRetrievalBackend,
+    from a_modular_rag_framework_tpu.modules.retrieval.engine_backend import (
+        EngineRetrievalBackend,
     )
 
     engine, samples = setup
-    backend = TPUHybridRetrievalBackend(engine=engine, iterative_hops=2)
+    backend = EngineRetrievalBackend(engine=engine, iterative_hops=2)
     out = backend.retrieve(RetrievalIn(query=samples[0]["question"],
                                        graph_id="", top_k=10, trace_id="t"))
     assert out.hits and out.hits[0].id.startswith("sent::")

@@ -363,7 +363,7 @@ def _iterative_engine():
     )
     from a_modular_rag_framework_tpu.engine.query_engine import (
         EngineConfig,
-        TPUQueryEngine,
+        QueryEngine,
     )
     from a_modular_rag_framework_tpu.index.builder import build_packed_index
     from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
@@ -372,7 +372,7 @@ def _iterative_engine():
                                        "collide_entities": True}).load()
     corpus = SentenceCorpus.from_hotpotqa(samples)
     idx = build_packed_index(corpus)
-    eng = TPUQueryEngine(idx, config=EngineConfig(
+    eng = QueryEngine(idx, config=EngineConfig(
         batch_buckets=(16,), query_df_ratio_max=0.05))
     assert eng._high_df_terms, "pruning must be active for this test"
     return eng, samples

@@ -65,7 +65,7 @@ def test_index_titles_reaches_pronoun_sentence(corpus):
     the displayed hit text stays the original sentence."""
     from a_modular_rag_framework_tpu.engine.query_engine import (
         EngineConfig,
-        TPUQueryEngine,
+        QueryEngine,
     )
 
     born = _row(corpus, "Steven Spielmann", 1)
@@ -74,7 +74,7 @@ def test_index_titles_reaches_pronoun_sentence(corpus):
 
     idx_t = build_packed_index(corpus, embed_dim=32, index_titles=True)
     assert idx_t.manifest["build_stats"]["index_titles"] is True
-    eng_t = TPUQueryEngine(idx_t, config=cfg)
+    eng_t = QueryEngine(idx_t, config=cfg)
     res = eng_t.query_batch([q])
     got = [int(i) for i in np.asarray(res.hits.ids)[0] if i >= 0]
     assert born in got, got
@@ -87,7 +87,7 @@ def test_index_titles_reaches_pronoun_sentence(corpus):
     # no token overlap with the query — the named sid-0 sentence outranks
     idx_p = build_packed_index(corpus, embed_dim=32)
     assert not idx_p.manifest["build_stats"]["index_titles"]
-    eng_p = TPUQueryEngine(idx_p, config=cfg)
+    eng_p = QueryEngine(idx_p, config=cfg)
     res_p = eng_p.query_batch([q])
     got_p = [int(i) for i in np.asarray(res_p.hits.ids)[0] if i >= 0]
     assert got_p[0] == _row(corpus, "Steven Spielmann", 0)

@@ -1,6 +1,4 @@
 """Device ops vs NumPy oracles: top-k, BM25, graph expansion, fusion, semantic."""
-import math
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,49 +12,15 @@ from a_modular_rag_framework_tpu.ops.graph import (
     hop_decay_table,
 )
 from a_modular_rag_framework_tpu.ops.semantic import semantic_edges
-from a_modular_rag_framework_tpu.ops.topk import dense_topk_pallas, dense_topk_xla
-from a_modular_rag_framework_tpu.models.hash_embed import tokenize
+from a_modular_rag_framework_tpu.eval.host_reference import bm25_oracle
+from a_modular_rag_framework_tpu.ops.topk import (
+    dense_topk,
+    dense_topk_exact_tiled,
+    dense_topk_xla,
+)
 
 
 # ---------------- oracles (independent reimplementations) ----------------
-
-
-def bm25_oracle(corpus, queries, k1=1.5, b=0.75, merge="max"):
-    """Dict-based BM25 with the reference's exact formula."""
-    tf = {}
-    doc_lens = []
-    for di, text in enumerate(corpus):
-        toks = tokenize(text)
-        doc_lens.append(len(toks))
-        for t in toks:
-            tf.setdefault(t, {}).setdefault(di, 0)
-            tf[t][di] += 1
-    N = len(corpus)
-    avgdl = sum(doc_lens) / N if N else 0.0
-
-    def idf(t):
-        n = len(tf.get(t, {}))
-        return math.log((N - n + 0.5) / (n + 0.5) + 1.0)
-
-    def score_doc(q_terms, di):
-        s = 0.0
-        dl = doc_lens[di]
-        for t in q_terms:
-            f = tf.get(t, {}).get(di, 0)
-            if f == 0:
-                continue
-            denom = f + k1 * (1 - b + b * (dl / (avgdl or 1.0)))
-            s += idf(t) * (f * (k1 + 1)) / (denom or 1.0)
-        return s
-
-    out = np.zeros((len(queries), N), dtype=np.float64)
-    for qi, q in enumerate(queries):
-        q_terms = tokenize(q)
-        for di in range(N):
-            out[qi, di] = score_doc(q_terms, di)
-    if merge == "max":
-        return out.max(axis=0)
-    return out.sum(axis=0)
 
 
 def bfs_decay_oracle(n, edges, seeds, window):
@@ -97,46 +61,57 @@ def test_dense_topk_xla_matches_numpy(rng):
     np.testing.assert_allclose(np.asarray(s), np.take_along_axis(ref, ref_ids, 1), rtol=1e-5)
 
 
-def test_dense_topk_pallas_interpret_matches_xla(rng):
-    """Pallas kernel correctness via interpret mode on CPU."""
-    from jax.experimental.pallas import tpu as pltpu
+# the exact paths, each checked against NumPy; the tiled path at a tile
+# count that leaves a ragged last tile
+EXACT_PATHS = {
+    "xla": lambda q, d, k: dense_topk_xla(q, d, k),
+    "tiled": lambda q, d, k: dense_topk_exact_tiled(q, d, k, n_tiles=7),
+}
 
+
+def _numpy_topk(q, d, k):
+    """Exact top-k in float64, ties by ascending id (lax.top_k's order)."""
+    s = np.asarray(q, np.float64) @ np.asarray(d, np.float64).T
+    ids = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, ids, 1), ids
+
+
+@pytest.mark.parametrize("path", sorted(EXACT_PATHS))
+def test_dense_topk_exact_paths_match_numpy(rng, path):
     Q = rng.standard_normal((4, 32), dtype=np.float32)
-    D = rng.standard_normal((300, 32), dtype=np.float32)  # forces padding
-    with pltpu.force_tpu_interpret_mode():
-        s_p, i_p = dense_topk_pallas(jnp.asarray(Q), jnp.asarray(D), 8, tile_n=128,
-                                     precision=jax.lax.Precision.HIGHEST)
-    s_x, i_x = dense_topk_xla(jnp.asarray(Q), jnp.asarray(D), 8, precision=jax.lax.Precision.HIGHEST)
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_x))
+    D = rng.standard_normal((300, 32), dtype=np.float32)  # ragged tiles
+    s, i = EXACT_PATHS[path](jnp.asarray(Q), jnp.asarray(D), 8)
+    s_ref, i_ref = _numpy_topk(Q, D, 8)
+    np.testing.assert_array_equal(np.asarray(i), i_ref)
+    np.testing.assert_allclose(np.asarray(s), s_ref, rtol=1e-5)
 
 
-def test_dense_topk_pallas_all_negative_scores(rng):
-    """Padded zero rows (score 0) must not beat real negative candidates."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    Q = rng.standard_normal((3, 16), dtype=np.float32)
+@pytest.mark.parametrize("path", sorted(EXACT_PATHS))
+def test_dense_topk_all_negative_scores(rng, path):
+    """Tile padding (NEG_INF columns) must not beat real negative
+    candidates."""
+    Q = np.abs(rng.standard_normal((3, 16), dtype=np.float32))
     D = -np.abs(rng.standard_normal((100, 16), dtype=np.float32))
-    Q = np.abs(Q)  # every real inner product strictly negative; N=100 pads to 128
-    with pltpu.force_tpu_interpret_mode():
-        s_p, i_p = dense_topk_pallas(jnp.asarray(Q), jnp.asarray(D), 7, tile_n=128,
-                                     precision=jax.lax.Precision.HIGHEST)
-    s_x, i_x = dense_topk_xla(jnp.asarray(Q), jnp.asarray(D), 7,
-                              precision=jax.lax.Precision.HIGHEST)
-    assert (np.asarray(s_p) < 0).all()
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_x))
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x), rtol=1e-5)
+    s, i = EXACT_PATHS[path](jnp.asarray(Q), jnp.asarray(D), 7)
+    s_ref, i_ref = _numpy_topk(Q, D, 7)
+    assert (np.asarray(s) < 0).all()
+    np.testing.assert_array_equal(np.asarray(i), i_ref)
+    np.testing.assert_allclose(np.asarray(s), s_ref, rtol=1e-5)
 
 
-def test_dense_topk_pallas_bf16_storage(rng):
-    from jax.experimental.pallas import tpu as pltpu
-
+@pytest.mark.parametrize("path", sorted(EXACT_PATHS))
+def test_dense_topk_bf16_storage(rng, path):
+    """bf16 corpus rows: queries are rounded to bf16 and products
+    accumulate in f32, so the result is NumPy's on the rounded values."""
     Q = rng.standard_normal((2, 16), dtype=np.float32)
     D = rng.standard_normal((128, 16), dtype=np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        s_p, i_p = dense_topk_pallas(jnp.asarray(Q), jnp.asarray(D, dtype=jnp.bfloat16).astype(jnp.bfloat16), 5, tile_n=64)
-    s_x, i_x = dense_topk_xla(jnp.asarray(Q), jnp.asarray(D).astype(jnp.bfloat16).astype(jnp.float32), 5)
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_x))
+    Db = jnp.asarray(D, dtype=jnp.bfloat16)
+    s, i = EXACT_PATHS[path](jnp.asarray(Q), Db, 5)
+    Qr = np.asarray(jnp.asarray(Q, dtype=jnp.bfloat16).astype(jnp.float32))
+    s_ref, i_ref = _numpy_topk(Qr, np.asarray(Db.astype(jnp.float32)), 5)
+    assert np.asarray(s).dtype == np.float32
+    np.testing.assert_array_equal(np.asarray(i), i_ref)
+    np.testing.assert_allclose(np.asarray(s), s_ref, rtol=1e-5)
 
 
 # ---------------- BM25 ----------------
@@ -365,14 +340,13 @@ def test_expand_frontier_weighted_batched_matches_vmapped(rng):
 
 
 def test_dense_topk_approx_matches_exact_on_cpu(rng):
-    """approx_max_k is exact on CPU, so the approx path must equal the
-    oracle here; on TPU its measured overlap is ~0.98 (documented)."""
-    from a_modular_rag_framework_tpu.ops.topk import dense_topk
+    """XLA lowers approx_max_k to an exact sort on the CPU and the GPU, so
+    the approx path must equal the oracle there."""
+    from a_modular_rag_framework_tpu.ops.topk import dense_topk_approx
 
     Q = rng.standard_normal((4, 32), dtype=np.float32)
     D = rng.standard_normal((300, 32), dtype=np.float32)
-    s_a, i_a = dense_topk(jnp.asarray(Q), jnp.asarray(D), 8,
-                          use_pallas="approx")
+    s_a, i_a = dense_topk_approx(jnp.asarray(Q), jnp.asarray(D), 8)
     s_x, i_x = dense_topk_xla(jnp.asarray(Q), jnp.asarray(D), 8)
     np.testing.assert_array_equal(np.asarray(i_a), np.asarray(i_x))
 
@@ -442,56 +416,58 @@ def test_compact_expansion_small_cap_keeps_strongest(rng):
     assert 4 not in got  # node 3 was truncated from the propagating wave
 
 
-def test_dense_topk_pallas_adversarial_ascending(rng):
-    """Ascending-score corpus: every tile improves every row (max insertion
-    pressure on the threshold-gated merge loop)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+@pytest.mark.parametrize("path", sorted(EXACT_PATHS))
+def test_dense_topk_adversarial_ascending(path):
+    """Ascending-score corpus: every later tile beats every earlier one."""
     q = np.ones((4, 8), np.float32)
-    d = np.linspace(0, 1, 512, dtype=np.float32)[:, None] * np.ones((512, 8), np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        s_p, i_p = dense_topk_pallas(jnp.asarray(q), jnp.asarray(d), 10,
-                                     tile_n=128,
-                                     precision=jax.lax.Precision.HIGHEST)
-    s_x, i_x = dense_topk_xla(jnp.asarray(q), jnp.asarray(d), 10,
-                              precision=jax.lax.Precision.HIGHEST)
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_x))
+    d = np.linspace(0, 1, 512, dtype=np.float32)[:, None] * np.ones(
+        (512, 8), np.float32)
+    s, i = EXACT_PATHS[path](jnp.asarray(q), jnp.asarray(d), 10)
+    np.testing.assert_array_equal(np.asarray(i),
+                                  np.tile(np.arange(511, 501, -1), (4, 1)))
+    np.testing.assert_allclose(np.asarray(s), _numpy_topk(q, d, 10)[0],
+                               rtol=1e-5)
 
 
-def test_dense_topk_pallas_tie_order_matches_lax_topk(rng):
-    """Duplicated corpus rows: tied scores must keep ascending ids, the
-    lax.top_k tie order (insertion goes AFTER existing equals)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+@pytest.mark.parametrize("path", sorted(EXACT_PATHS))
+def test_dense_topk_tie_order_matches_lax_topk(rng, path):
+    """Duplicated corpus rows, with tie groups split across tiles: tied
+    scores keep ascending ids, lax.top_k's tie order."""
     d = np.repeat(rng.standard_normal((50, 8)).astype(np.float32), 4, axis=0)
     q = rng.standard_normal((3, 8)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        s_p, i_p = dense_topk_pallas(jnp.asarray(q), jnp.asarray(d), 12,
-                                     tile_n=64,
-                                     precision=jax.lax.Precision.HIGHEST)
-    s_x, i_x = dense_topk_xla(jnp.asarray(q), jnp.asarray(d), 12,
-                              precision=jax.lax.Precision.HIGHEST)
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_x))
+    s, i = EXACT_PATHS[path](jnp.asarray(q), jnp.asarray(d), 12)
+    np.testing.assert_array_equal(np.asarray(i), _numpy_topk(q, d, 12)[1])
+    ref_s, ref_i = dense_topk_xla(jnp.asarray(q), jnp.asarray(d), 12)
+    np.testing.assert_array_equal(np.asarray(i), np.asarray(ref_i))
 
 
-def test_dense_topk_pallas_shape_fuzz(rng):
-    """Shapes that stress padding: k above 128 lanes (kp=256), k == N,
-    batch tiling with remainder, odd corpus sizes."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    for B, N, k, tn in ((8, 700, 33, 128), (16, 256, 5, 64),
-                        (2, 2000, 200, 512), (5, 130, 130, 64)):
+@pytest.mark.parametrize("path", sorted(EXACT_PATHS))
+def test_dense_topk_shape_fuzz(rng, path):
+    """Shapes that stress tiling: k above a tile, k == N, odd corpus
+    sizes, more tiles than k."""
+    for B, N, k in ((8, 700, 33), (16, 256, 5), (2, 2000, 200), (5, 130, 130)):
         q = rng.standard_normal((B, 24)).astype(np.float32)
         d = rng.standard_normal((N, 24)).astype(np.float32)
-        with pltpu.force_tpu_interpret_mode():
-            s_p, i_p = dense_topk_pallas(jnp.asarray(q), jnp.asarray(d), k,
-                                         tile_n=tn, tile_b=8,
-                                         precision=jax.lax.Precision.HIGHEST)
-        s_x, i_x = dense_topk_xla(jnp.asarray(q), jnp.asarray(d), k,
-                                  precision=jax.lax.Precision.HIGHEST)
-        np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_x))
-        np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x),
-                                   rtol=1e-4, atol=1e-5)
+        s, i = EXACT_PATHS[path](jnp.asarray(q), jnp.asarray(d), k)
+        s_ref, i_ref = _numpy_topk(q, d, k)
+        np.testing.assert_array_equal(np.asarray(i), i_ref)
+        np.testing.assert_allclose(np.asarray(s), s_ref, rtol=1e-4, atol=1e-5)
+
+
+def test_dense_topk_tiled_rejects_k_above_n(rng):
+    d = jnp.asarray(rng.standard_normal((10, 4)).astype(np.float32))
+    with pytest.raises(ValueError):
+        dense_topk_exact_tiled(d[:2], d, 11, n_tiles=4)
+
+
+def test_dense_topk_dispatch_is_exact(rng):
+    """The engine's entry point returns the oracle's result."""
+    Q = rng.standard_normal((6, 16), dtype=np.float32)
+    D = rng.standard_normal((333, 16), dtype=np.float32)
+    s, i = dense_topk(jnp.asarray(Q), jnp.asarray(D), 9)
+    s_ref, i_ref = _numpy_topk(Q, D, 9)
+    np.testing.assert_array_equal(np.asarray(i), i_ref)
+    np.testing.assert_allclose(np.asarray(s), s_ref, rtol=1e-5)
 
 
 def test_reorder_hits_two_stage_fusion():
@@ -527,7 +503,7 @@ def test_engine_order_alphas_same_set_parity_order():
     )
     from a_modular_rag_framework_tpu.engine.query_engine import (
         EngineConfig,
-        TPUQueryEngine,
+        QueryEngine,
     )
     from a_modular_rag_framework_tpu.index.builder import build_packed_index
     from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
@@ -539,8 +515,8 @@ def test_engine_order_alphas_same_set_parity_order():
                 batch_buckets=(32,), alpha_text=0.15, alpha_graph=0.7,
                 alpha_dense=0.15, graph_wave_dtype="float32")
     qs = [s["question"] for s in samples]
-    plain = TPUQueryEngine(idx, config=EngineConfig(**base))
-    two = TPUQueryEngine(idx, config=EngineConfig(
+    plain = QueryEngine(idx, config=EngineConfig(**base))
+    two = QueryEngine(idx, config=EngineConfig(
         order_alphas=(0.4, 0.2, 0.4), **base))
     r1, r2 = plain.query_batch(qs), two.query_batch(qs)
     i1, i2 = np.asarray(r1.hits.ids), np.asarray(r2.hits.ids)
@@ -580,3 +556,19 @@ def test_dense_topk_exact_tiled_matches_xla():
         assert np.allclose(np.asarray(s1), np.asarray(s2), atol=1e-5)
         for b in range(9):
             assert set(np.asarray(i1)[b].tolist()) == set(np.asarray(i2)[b].tolist())
+
+
+def test_canonical_pool_order_sorts_by_score_then_id():
+    """Pools leave phase-1 in the order of its float sums; graph seeding
+    breaks ties by position, so both engines put the pool in (score desc,
+    id asc) order with invalid entries (score <= 0 or id < 0) last."""
+    from a_modular_rag_framework_tpu.ops.bm25 import canonical_pool_order
+
+    s = jnp.asarray([[0.5, 2.0, 0.5, 0.0, 2.0, 1.0, 3.0]], jnp.float32)
+    i = jnp.asarray([[9, 7, 4, 1, 3, -1, 5]], jnp.int32)
+    ps, pi = canonical_pool_order(s, i)
+    assert np.asarray(pi)[0, :5].tolist() == [5, 3, 7, 4, 9]
+    assert np.asarray(ps)[0, :5].tolist() == [3.0, 2.0, 2.0, 0.5, 0.5]
+    # invalid entries keep their values, after the valid ones
+    assert sorted(zip(np.asarray(ps)[0, 5:].tolist(),
+                      np.asarray(pi)[0, 5:].tolist())) == [(0.0, 1), (1.0, -1)]

@@ -1,4 +1,4 @@
-"""Recall parity: the TPU engine vs a host pipeline with the reference's
+"""Recall parity: the device engine vs a host pipeline with the reference's
 semantics (BASELINE.md: >= 0.95x reference Recall@10).
 
 The host pipeline reimplements the reference hybrid flow faithfully on the
@@ -10,13 +10,17 @@ import numpy as np
 import pytest
 
 from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
-from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
 from a_modular_rag_framework_tpu.eval.harness import gold_hit_ids
+from a_modular_rag_framework_tpu.eval.host_reference import (
+    HostReference,
+    host_reference_pipeline,
+    host_reference_pipeline_3ch,
+    qmatch_seed_rows_for_sample,
+)
 from a_modular_rag_framework_tpu.eval.metrics import recall_at_k
 from a_modular_rag_framework_tpu.index.builder import build_packed_index
 from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
-from a_modular_rag_framework_tpu.models.hash_embed import hash_embed_numpy
-from tests.test_ops import bm25_oracle
 
 K = 10
 POOL = 200
@@ -28,123 +32,15 @@ def setup():
                                        "unique_entities": True}).load()
     corpus = SentenceCorpus.from_hotpotqa(samples)
     idx = build_packed_index(corpus, embed_dim=64, embed_dtype="float32")
-    return idx, samples
-
-
-def host_reference_pipeline(idx, query: str, k: int = K):
-    """Reference-semantics hybrid retrieval on the host (text+dense only)."""
-    texts = idx.corpus.texts()
-    n = len(texts)
-    bm25 = bm25_oracle(texts, [query])
-    order = np.argsort(-bm25, kind="stable")
-    pool = [int(i) for i in order[:POOL] if bm25[i] > 0]
-
-    emb = hash_embed_numpy(texts, dim=64)
-    qv = hash_embed_numpy([query], dim=64)[0]
-    dense = {}
-    for i in pool:
-        d = np.linalg.norm(qv) * np.linalg.norm(emb[i])
-        dense[i] = float(qv @ emb[i] / d) if d else 0.0
-
-    def norm(d):
-        if not d:
-            return {}
-        vs = list(d.values())
-        lo, hi = min(vs), max(vs)
-        if hi <= lo:
-            return {kk: 0.0 for kk in d}
-        return {kk: (v - lo) / (hi - lo) for kk, v in d.items()}
-
-    nt = norm({i: float(bm25[i]) for i in pool})
-    nd = norm(dense)
-    fused = {i: 0.4 * nt.get(i, 0) + 0.4 * nd.get(i, 0) for i in pool}
-    ranked = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
-    return [idx.corpus.hit_id(i) for i, _ in ranked]
-
-
-def host_reference_pipeline_3ch(idx, sample, seed_rows, k: int = K,
-                                window: int = 2):
-    """Reference-semantics hybrid with ALL THREE channels: BM25 pool +
-    dense cosine over the pool + graph BFS from the per-question q_match
-    seeds over next-in-doc chains with hop decay 1.0/0.7/0.5
-    (graph_utils.py:58-129), min-max per channel, 0.4/0.2/0.4 fusion."""
-    query = sample["question"]
-    texts = idx.corpus.texts()
-    bm25 = bm25_oracle(texts, [query])
-    order = np.argsort(-bm25, kind="stable")
-    pool = [int(i) for i in order[:POOL] if bm25[i] > 0]
-
-    emb = hash_embed_numpy(texts, dim=64)
-    qv = hash_embed_numpy([query], dim=64)[0]
-    dense = {}
-    for i in pool:
-        d = np.linalg.norm(qv) * np.linalg.norm(emb[i])
-        dense[i] = float(qv @ emb[i] / d) if d else 0.0
-
-    # graph channel: BFS over next-in-doc chains (fwd+bwd) with decay
-    decay = {0: 1.0, 1: 0.7, 2: 0.5}
-    nbrs = np.asarray(idx.graph_next)
-    graph: dict = {}
-    frontier = list(seed_rows)
-    seen = set(frontier)
-    for r in frontier:
-        graph[r] = decay[0]
-    for hop in range(1, window + 1):
-        nxt = []
-        for r in frontier:
-            for nb in nbrs[r]:
-                nb = int(nb)
-                if nb >= 0 and nb not in seen:
-                    seen.add(nb)
-                    graph[nb] = decay[hop]
-                    nxt.append(nb)
-        frontier = nxt
-    # graph pool = top POOL by score (reference expand returns top_k pool)
-    gpool = dict(sorted(graph.items(), key=lambda kv: (-kv[1], kv[0]))[:POOL])
-
-    def norm(d):
-        if not d:
-            return {}
-        vs = list(d.values())
-        lo, hi = min(vs), max(vs)
-        if hi <= lo:
-            return {kk: 0.0 for kk in d}
-        return {kk: (v - lo) / (hi - lo) for kk, v in d.items()}
-
-    nt = norm({i: float(bm25[i]) for i in pool})
-    nd = norm(dense)
-    ng = norm(gpool)
-    ids = set(pool) | set(gpool)
-    fused = {i: 0.4 * nt.get(i, 0) + 0.2 * ng.get(i, 0) + 0.4 * nd.get(i, 0)
-             for i in ids}
-    ranked = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
-    return [idx.corpus.hit_id(i) for i, _ in ranked]
-
-
-def qmatch_seed_rows_for_sample(idx, sample):
-    """Per-question q_match seeds: the sample's own context sentences
-    sharing >= 1 token with the question (EdgeBuilder q_match semantics,
-    reference edge_builder.py:134-143), mapped to corpus rows."""
-    from a_modular_rag_framework_tpu.models.hash_embed import tokenize
-
-    q_terms = set(tokenize(sample["question"]))
-    by = idx.corpus.row_by_title_sid()
-    rows = []
-    for title, sents in sample["context"]:
-        for sid, text in enumerate(sents):
-            if q_terms & set(tokenize(text)):
-                row = by.get((title, sid))
-                if row is not None:
-                    rows.append(int(row))
-    return sorted(set(rows))
+    return idx, samples, HostReference(idx.corpus.texts(), embed_dim=64)
 
 
 def test_engine_recall_matches_reference_semantics_3_channels(setup):
     """The FULL 3-channel fusion (text + graph + dense) against the host
     reference-semantics oracle, with per-question q_match seeds — the
     graph-channel-inclusive parity bar (VERDICT r1 item 6)."""
-    idx, samples = setup
-    engine = TPUQueryEngine(
+    idx, samples, ref = setup
+    engine = QueryEngine(
         idx,
         config=EngineConfig(top_k=K, pool_k=POOL, graph_window=2,
                             include_entity_graph=False,
@@ -160,7 +56,7 @@ def test_engine_recall_matches_reference_semantics_3_channels(setup):
         gold = gold_hit_ids(s)
         got = [idx.corpus.hit_id(int(i)) for i in ids[row] if i >= 0]
         engine_recalls.append(recall_at_k(got, gold, K))
-        host = host_reference_pipeline_3ch(idx, s, seeds[row])
+        host = host_reference_pipeline_3ch(idx, s, seeds[row], ref=ref)
         host_recalls.append(recall_at_k(host, gold, K))
 
     eng, ref = float(np.mean(engine_recalls)), float(np.mean(host_recalls))
@@ -170,8 +66,8 @@ def test_engine_recall_matches_reference_semantics_3_channels(setup):
 
 
 def test_engine_recall_at_10_matches_reference_semantics(setup):
-    idx, samples = setup
-    engine = TPUQueryEngine(
+    idx, samples, ref = setup
+    engine = QueryEngine(
         idx,
         config=EngineConfig(top_k=K, pool_k=POOL, graph_window=0,
                             alpha_graph=0.0, batch_buckets=(64,)),
@@ -185,9 +81,41 @@ def test_engine_recall_at_10_matches_reference_semantics(setup):
         gold = gold_hit_ids(s)
         got = [idx.corpus.hit_id(int(i)) for i in ids[row] if i >= 0]
         engine_recalls.append(recall_at_k(got, gold, K))
-        host = host_reference_pipeline(idx, s["question"])
+        host = host_reference_pipeline(idx, s["question"], ref=ref)
         host_recalls.append(recall_at_k(host, gold, K))
 
     eng, ref = float(np.mean(engine_recalls)), float(np.mean(host_recalls))
     assert ref > 0, "host reference retrieved nothing — fixture broken"
     assert eng >= 0.95 * ref, f"engine recall {eng:.4f} < 0.95 * reference {ref:.4f}"
+
+
+def test_engine_top10_matches_reference_scores(setup):
+    """Exact settings: no phrase tokens, a phase-1 window covering every
+    posting list, and a pool as wide as the corpus, so that pool membership
+    has no boundary at which BM25 ties could be cut differently. The
+    engine's top-10 ids and fused scores then equal the host reference's,
+    except where the reference's own scores differ by less than the
+    float32 tolerance (`compare_topk`)."""
+    from a_modular_rag_framework_tpu.eval.host_reference import compare_topk
+
+    _, samples, _ = setup
+    # the reference's BM25 has no phrase pseudo-tokens
+    idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
+                             embed_dim=64, embed_dtype="float32",
+                             bm25_phrase_tokens=False)
+    ref = HostReference(idx.corpus.texts(), embed_dim=64)
+    longest = int(np.diff(np.asarray(idx.bm25.row_ptr)).max())
+    engine = QueryEngine(
+        idx,
+        config=EngineConfig(top_k=K, pool_k=idx.n_docs, graph_window=0,
+                            alpha_graph=0.0, batch_buckets=(64,),
+                            bm25_term_topm=longest, bm25_posting_cap=longest,
+                            graph_pool_exact=True),
+    )
+    qs = [s["question"] for s in samples]
+    result = engine.query_batch(qs, top_k=K)
+    ids, scores = np.asarray(result.hits.ids), np.asarray(result.hits.scores)
+    for row, q in enumerate(qs):
+        fused = ref.fused(q, alphas=(0.4, 0.0, 0.4), pool_k=idx.n_docs)
+        ok, why = compare_topk(ids[row], scores[row], fused, K, tol=1e-5)
+        assert ok, f"query {row}: {why}"

@@ -17,7 +17,6 @@ import json
 from pathlib import Path
 
 import pytest
-import yaml
 
 FIXTURE = Path(__file__).parent / "fixtures" / "hotpotqa_real_schema.json"
 ROOT = Path(__file__).resolve().parents[1]
@@ -78,14 +77,14 @@ def test_ingest_real_schema_corpus(ingested, loaded_samples):
 @pytest.fixture(scope="module")
 def real_settings(ingested):
     work, docs_out, _ = ingested
-    settings = yaml.safe_load((ROOT / "config" / "settings.yaml").read_text())
+    settings = json.loads((ROOT / "config" / "settings.json").read_text())
     rk = settings["modules"]["retrieval"].setdefault("impl_kwargs", {})
     rk["index_path"] = str(docs_out)
     rk["graph_root"] = str(work / "graph")
     settings["dataset"] = {"type": "hotpotqa", "path": str(FIXTURE),
                            "count": -1}
-    s_path = work / "settings.yaml"
-    s_path.write_text(yaml.safe_dump(settings))
+    s_path = work / "settings.json"
+    s_path.write_text(json.dumps(settings))
     return s_path
 
 
@@ -94,7 +93,7 @@ def test_retrieval_finds_supporting_facts(ingested, loaded_samples):
     of every fixture question."""
     from a_modular_rag_framework_tpu.engine.query_engine import (
         EngineConfig,
-        TPUQueryEngine,
+        QueryEngine,
     )
     from a_modular_rag_framework_tpu.eval.harness import (
         evaluate_retrieval,
@@ -111,7 +110,7 @@ def test_retrieval_finds_supporting_facts(ingested, loaded_samples):
 
     _, docs_out, stats = ingested
     idx = PackedIndex.load(stats["packed_dir"])
-    engine = TPUQueryEngine(idx, config=EngineConfig(
+    engine = QueryEngine(idx, config=EngineConfig(
         top_k=10, pool_k=32, graph_window=2, batch_buckets=(8,)))
     # single-pass finds the hop-1 facts; the iterative bridge-entity mode
     # (the production quality mode) must recall everything

@@ -8,7 +8,7 @@ import pytest
 
 from a_modular_rag_framework_tpu.cli.serve import _App, _make_handler, build_engine
 from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
-from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
 from a_modular_rag_framework_tpu.engine.server import QueryServer
 from a_modular_rag_framework_tpu.index.builder import build_packed_index
 from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
@@ -19,7 +19,7 @@ def http_app():
     samples = SyntheticHotpotQALoader({"count": 12, "seed": 5}).load()
     corpus = SentenceCorpus.from_hotpotqa(samples)
     idx = build_packed_index(corpus, embed_dim=32, embed_dtype="float32")
-    eng = TPUQueryEngine(idx, config=EngineConfig(top_k=5, pool_k=50,
+    eng = QueryEngine(idx, config=EngineConfig(top_k=5, pool_k=50,
                                                   batch_buckets=(8, 32)))
     with QueryServer(eng, max_batch=16, max_wait_ms=5.0) as qserver:
         app = _App(qserver, idx.n_docs, qa=False)

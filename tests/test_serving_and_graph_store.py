@@ -7,7 +7,7 @@ import pytest
 
 from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
 from a_modular_rag_framework_tpu.core.dto import Hit
-from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
 from a_modular_rag_framework_tpu.engine.server import QueryServer
 from a_modular_rag_framework_tpu.index.builder import build_packed_index
 from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
@@ -23,7 +23,7 @@ def engine():
     samples = SyntheticHotpotQALoader({"count": 12, "seed": 9}).load()
     corpus = SentenceCorpus.from_hotpotqa(samples)
     idx = build_packed_index(corpus, embed_dim=32, embed_dtype="float32")
-    return TPUQueryEngine(idx, config=EngineConfig(top_k=5, pool_k=50,
+    return QueryEngine(idx, config=EngineConfig(top_k=5, pool_k=50,
                                                    batch_buckets=(8, 32))), samples
 
 
@@ -152,7 +152,7 @@ def test_graph_store_roundtrip(tmp_path):
     )
 
     impl = GraphConstructionArrays(root_dir=str(tmp_path), write_analysis=False)
-    # production policy (settings.yaml): vote fusion without min-vote pruning
+    # production policy (settings.json): vote fusion without min-vote pruning
     flow = GraphConstructionFlow(impl=impl, edge_builder_kwargs={
         "assembly_policy": {"channels": {"q_overlap": 1.0, "embed_sim": 1.0,
                                          "entity_link": 0.6,

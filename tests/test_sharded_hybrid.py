@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
-from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
 from a_modular_rag_framework_tpu.index.builder import build_packed_index
 from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
 from a_modular_rag_framework_tpu.parallel.mesh import build_mesh
@@ -37,7 +37,7 @@ def test_sharded_hybrid_recall_equal_on_template_corpus():
     idx = build_packed_index(corpus, embed_dim=32, embed_dtype="float32")
     cfg = EngineConfig(top_k=10, pool_k=64, graph_window=2,
                        bm25_term_topm=4096, batch_buckets=(32,))
-    single = TPUQueryEngine(idx, config=cfg)
+    single = QueryEngine(idx, config=cfg)
     sharded = ShardedHybridEngine(idx, mesh=build_mesh({"data": 8}),
                                   config=cfg)
     qs = [s["question"] for s in samples]
@@ -59,7 +59,7 @@ def test_sharded_hybrid_recall_equal_on_template_corpus():
 
 
 def test_mesh_settings_activate_sharded_engine(tmp_path):
-    """settings.yaml `mesh:` + `index.shard_axis` wiring: the retrieval flow
+    """settings.json `mesh:` + `index.shard_axis` wiring: the retrieval flow
     constructs the sharded hybrid engine when the mesh has >1 device."""
     from a_modular_rag_framework_tpu.cli.ingest_hotpotqa import ingest
     from a_modular_rag_framework_tpu.core.dto import RetrievalIn
@@ -78,7 +78,7 @@ def test_mesh_settings_activate_sharded_engine(tmp_path):
             "type": ("a_modular_rag_framework_tpu.modules.retrieval."
                      "flow:RetrievalAgentFlow"),
             "impl": ("a_modular_rag_framework_tpu.modules.retrieval."
-                     "tpu_backend:TPUHybridRetrievalBackend"),
+                     "engine_backend:EngineRetrievalBackend"),
             "impl_kwargs": {
                 "index_path": str(docs_out),
                 "graph_root": str(tmp_path / "graph"),
@@ -115,7 +115,7 @@ def test_graph_impl_settings_reach_engine_config(tmp_path):
             "type": ("a_modular_rag_framework_tpu.modules.retrieval."
                      "flow:RetrievalAgentFlow"),
             "impl": ("a_modular_rag_framework_tpu.modules.retrieval."
-                     "tpu_backend:TPUHybridRetrievalBackend"),
+                     "engine_backend:EngineRetrievalBackend"),
             "impl_kwargs": {"index_path": str(docs_out),
                             "graph_root": str(tmp_path / "graph")},
         }},
@@ -146,7 +146,7 @@ def test_dcn_axes_compose_outermost():
     cfg = EngineConfig(top_k=10, pool_k=64, graph_window=2,
                        bm25_term_topm=4096, batch_buckets=(8,),
                        graph_pool_exact=True)
-    single = TPUQueryEngine(idx, config=cfg)
+    single = QueryEngine(idx, config=cfg)
     sharded = ShardedHybridEngine(idx, mesh=mesh, axis="data", config=cfg)
     assert sharded.n_shards == 4
     # the extra (dcn) axis is data-parallel over the query batch — not
@@ -163,7 +163,7 @@ def test_dcn_axes_compose_outermost():
 
 def test_order_alphas_settings_reach_engine_config(tmp_path):
     """The two-stage fusion knobs flow impl_kwargs -> backend ->
-    EngineConfig (config-drivable, as documented in settings.yaml)."""
+    EngineConfig (config-drivable, as documented in settings.json)."""
     from a_modular_rag_framework_tpu.cli.ingest_hotpotqa import ingest
     from a_modular_rag_framework_tpu.modules.retrieval.flow import RetrievalAgentFlow
 
@@ -178,7 +178,7 @@ def test_order_alphas_settings_reach_engine_config(tmp_path):
             "type": ("a_modular_rag_framework_tpu.modules.retrieval."
                      "flow:RetrievalAgentFlow"),
             "impl": ("a_modular_rag_framework_tpu.modules.retrieval."
-                     "tpu_backend:TPUHybridRetrievalBackend"),
+                     "engine_backend:EngineRetrievalBackend"),
             "impl_kwargs": {"index_path": str(docs_out),
                             "graph_root": str(tmp_path / "graph"),
                             "alpha_text": 0.15, "alpha_graph": 0.7,
@@ -190,3 +190,126 @@ def test_order_alphas_settings_reach_engine_config(tmp_path):
     cfg = flow.backend.engine.config
     assert cfg.alpha_graph == 0.7
     assert cfg.order_alphas == (0.4, 0.2, 0.4)
+
+
+def test_sharded_iterative_with_hop2_pool_k_equals_single_chip():
+    """Iterative 2-hop with EngineConfig.hop2_pool_k set: the hop-2
+    dispatch passes ``pool_k``, which the sharded engine accepts with the
+    single-chip semantics, and both engines return the same hits."""
+    from __graft_entry__ import _bridge_corpus
+    from a_modular_rag_framework_tpu.modules.retrieval.multihop import (
+        iterative_retrieve,
+    )
+
+    corpus, queries = _bridge_corpus()
+    idx = build_packed_index(corpus, embed_dim=32, embed_dtype="float32")
+    cfg = EngineConfig(top_k=5, pool_k=32, graph_window=2,
+                       bm25_term_topm=4096, batch_buckets=(8,),
+                       graph_pool_exact=True, hop2_pool_k=8)
+    single = QueryEngine(idx, config=cfg)
+    sharded = ShardedHybridEngine(idx, mesh=build_mesh({"data": 8}),
+                                  config=cfg)
+    ids_a, sc_a, _, diag_a = iterative_retrieve(single, queries, top_k=5)
+    ids_b, sc_b, _, diag_b = iterative_retrieve(sharded, queries, top_k=5)
+    assert diag_a["hop2_active"] > 0
+    assert diag_a["hop2_active"] == diag_b["hop2_active"]
+    np.testing.assert_array_equal(np.asarray(ids_a), np.asarray(ids_b))
+    np.testing.assert_allclose(np.asarray(sc_a), np.asarray(sc_b), atol=1e-5)
+    # the narrower pool reached the sharded program
+    r = sharded.query_batch(queries, top_k=5, pool_k=8)
+    assert r.diagnostics["pool"]["bm25_pool_k"] == 8
+
+
+@pytest.mark.parametrize("term_topm,with_expansions", [
+    (2, False), (3, True), (4096, True)])
+def test_sharded_equals_single_chip_with_narrow_windows(term_topm,
+                                                        with_expansions):
+    """Phase-1 windows shorter than the posting lists, and query variants
+    max-merged (E > 1): the shards see the single-chip windows and each
+    variant's pool merges corpus-wide, so the hits are the single chip's."""
+    from a_modular_rag_framework_tpu.parallel.sharded_hybrid import (
+        _tie_free_corpus,
+    )
+
+    corpus, queries = _tie_free_corpus(n_docs=60)
+    idx = build_packed_index(corpus, embed_dim=32, embed_dtype="float32")
+    longest = int(np.diff(np.asarray(idx.bm25.row_ptr)).max())
+    assert term_topm == 4096 or longest > term_topm  # windows do truncate
+    cfg = EngineConfig(top_k=10, pool_k=16, graph_window=2,
+                       bm25_term_topm=term_topm, batch_buckets=(8,),
+                       graph_pool_exact=True)
+    kw = {}
+    if with_expansions:
+        kw["expansions"] = [[queries[(i + 1) % len(queries)],
+                             queries[(i + 3) % len(queries)]]
+                            for i in range(len(queries))]
+    a = QueryEngine(idx, config=cfg).query_batch(queries, top_k=10, **kw)
+    b = ShardedHybridEngine(idx, mesh=build_mesh({"data": 8}),
+                            config=cfg).query_batch(queries, top_k=10, **kw)
+    np.testing.assert_array_equal(np.asarray(a.hits.ids),
+                                  np.asarray(b.hits.ids))
+    np.testing.assert_allclose(np.asarray(a.hits.scores),
+                               np.asarray(b.hits.scores), atol=1e-6)
+
+
+def test_shard_hybrid_arrays_keep_the_term_window():
+    """term_window keeps each term's first postings over the corpus, split
+    over the shards by row range."""
+    from a_modular_rag_framework_tpu.parallel.sharded_hybrid import (
+        _tie_free_corpus,
+        shard_hybrid_arrays,
+    )
+
+    corpus, _ = _tie_free_corpus()
+    idx = build_packed_index(corpus, embed_dim=32, embed_dtype="float32")
+    bm = idx.bm25
+    rp, ids = np.asarray(bm.row_ptr), np.asarray(bm.doc_ids)
+    host = shard_hybrid_arrays(idx, 4, term_window=3)
+    n_local = host["n_local"]
+    for t in range(len(rp) - 1):
+        want = ids[rp[t]:rp[t + 1]][:3]
+        got = []
+        for sh in range(4):
+            lrp = host["csr_row_ptr"][sh]
+            got += list(host["csr_doc_ids"][sh][lrp[t]:lrp[t + 1]]
+                        + sh * n_local)
+        assert sorted(got) == sorted(want.tolist())
+
+
+@pytest.mark.parametrize("window,df_ratio", [(1024, None), (16, 0.05)])
+def test_sharded_equals_single_chip_on_colliding_corpus_at_scale(window,
+                                                                 df_ratio):
+    """101k colliding-entity rows, compact graph, phase-1 windows holding
+    every posting or the bench's scale windows (16 postings per term, df
+    above 5% pruned): the sharded engine's hits equal the single-chip
+    engine's up to ties. The canonical pool order keeps graph seeding
+    independent of where phase-1 left each candidate."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import _compare, _max_diff
+
+    samples = SyntheticHotpotQALoader({"count": 4600, "seed": 0,
+                                       "n_distractors": 8,
+                                       "collide_entities": True}).load()
+    idx = build_packed_index(SentenceCorpus.from_hotpotqa(samples),
+                             embed_dim=32, embed_dtype="float32")
+    n = idx.n_docs
+    cfg = EngineConfig(top_k=10, pool_k=200, graph_window=2,
+                       bm25_term_topm=window, bm25_posting_cap=1024,
+                       query_df_ratio_max=df_ratio or 1024.0 / n,
+                       batch_buckets=(64,),
+                       graph_impl="compact", graph_compact_cap=128,
+                       graph_wave_dtype="float32")
+    qs = [s["question"] for s in samples[:64]]
+    a = QueryEngine(idx, config=cfg).query_batch(qs, top_k=10)
+    import jax
+
+    mesh = build_mesh({"data": 4}, devices=jax.devices()[:4])
+    b = ShardedHybridEngine(idx, mesh=mesh, config=cfg).query_batch(
+        qs, top_k=10)
+    assert a.diagnostics["graph_candidates"] == b.diagnostics["graph_candidates"]
+    assert _max_diff(a.hits.scores, b.hits.scores) < 1e-5
+    assert _compare((a.hits.ids, a.hits.scores),
+                    (b.hits.ids, b.hits.scores), 1e-5) == 0

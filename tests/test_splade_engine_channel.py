@@ -13,7 +13,7 @@ from a_modular_rag_framework_tpu.core.dataset_loader import (
 )
 from a_modular_rag_framework_tpu.engine.query_engine import (
     EngineConfig,
-    TPUQueryEngine,
+    QueryEngine,
 )
 from a_modular_rag_framework_tpu.index.builder import build_packed_index
 from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
@@ -48,7 +48,7 @@ def test_engine_splade_channel_matches_retriever(setup):
     qs = [s["question"] for s in samples[:8]]
     ids_ref, scores_ref = r.query_batch(qs, top_k=5)
 
-    engine = TPUQueryEngine(idx, config=EngineConfig(
+    engine = QueryEngine(idx, config=EngineConfig(
         sparse_impl="splade", splade_weights=ckpt, top_k=5,
         pool_k=64, alpha_text=1.0, alpha_graph=0.0, alpha_dense=0.0,
         graph_window=1, batch_buckets=(8,), bm25_term_topm=256))
@@ -62,7 +62,7 @@ def test_engine_splade_channel_matches_retriever(setup):
 
 def test_engine_splade_full_hybrid_runs_and_caches_programs(setup):
     samples, corpus, idx, enc, ckpt = setup
-    engine = TPUQueryEngine(idx, config=EngineConfig(
+    engine = QueryEngine(idx, config=EngineConfig(
         sparse_impl="splade", splade_weights=ckpt, top_k=5,
         pool_k=32, graph_window=2, batch_buckets=(8,),
         bm25_term_topm=64))
@@ -82,13 +82,13 @@ def test_engine_splade_full_hybrid_runs_and_caches_programs(setup):
 def test_engine_splade_config_validation(setup):
     samples, corpus, idx, enc, ckpt = setup
     with pytest.raises(ValueError, match="splade_weights"):
-        TPUQueryEngine(idx, config=EngineConfig(sparse_impl="splade"))
+        QueryEngine(idx, config=EngineConfig(sparse_impl="splade"))
     with pytest.raises(ValueError, match="sorted"):
-        TPUQueryEngine(idx, config=EngineConfig(
+        QueryEngine(idx, config=EngineConfig(
             sparse_impl="splade", splade_weights=ckpt,
             bm25_impl="scatter"))
     with pytest.raises(ValueError, match="sparse_impl"):
-        TPUQueryEngine(idx, config=EngineConfig(sparse_impl="typo"))
+        QueryEngine(idx, config=EngineConfig(sparse_impl="typo"))
 
 
 def test_rescore_pool_term_weights_oracle():

@@ -4,7 +4,6 @@ import json
 from pathlib import Path
 
 import pytest
-import yaml
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -26,7 +25,7 @@ def env(tmp_path_factory):
                    docs_out=docs_out, build_graphs=True, pack=True)
     assert stats["sentences"] > 0
 
-    base = yaml.safe_load(Path("config/settings.yaml").read_text())
+    base = json.loads(Path("config/settings.json").read_text())
     base["dataset"] = {"type": "synthetic_hotpotqa", "count": N_SAMPLES, "seed": 11}
     rcfg = base["modules"]["retrieval"]["impl_kwargs"]
     rcfg["index_path"] = str(docs_out)
@@ -36,8 +35,8 @@ def env(tmp_path_factory):
     # keep the test fast: fewer self-consistency runs
     base["modules"]["verification"]["impl_kwargs"]["sc_runs"] = 2
 
-    settings_path = root / "settings.yaml"
-    settings_path.write_text(yaml.safe_dump(base))
+    settings_path = root / "settings.json"
+    settings_path.write_text(json.dumps(base))
     reset_system_cache()
     return {"root": root, "settings": str(settings_path), "samples": samples,
             "runs": str(root / "runs")}
@@ -121,7 +120,7 @@ def test_answer_question_without_ingested_corpus(tmp_path, monkeypatch):
     res = answer_question(
         "In which city was the collaborator of Sage Silverton born?",
         mode="full",
-        settings_path=str(REPO_ROOT / "config" / "settings.yaml"),
+        settings_path=str(REPO_ROOT / "config" / "settings.json"),
     )
     answer = (res.get("reasoning") or {}).get("answer") or ""
     # the mock extracts the location span, so the answer is the city name

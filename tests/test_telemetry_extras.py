@@ -4,7 +4,7 @@ import json
 import numpy as np
 
 from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
-from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
 from a_modular_rag_framework_tpu.index.builder import build_packed_index
 from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
 from a_modular_rag_framework_tpu.index.packed import PackedIndex
@@ -23,7 +23,7 @@ def _small_index():
 def test_engine_emits_device_timing(tmp_path):
     idx, samples = _small_index()
     sink = LocalJsonlSink(root_dir=str(tmp_path))
-    engine = TPUQueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1,)),
+    engine = QueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1,)),
                             sink=sink)
     engine.query_batch([samples[0]["question"]], trace_id="tr-dev")
     evts = [json.loads(l) for l in
@@ -36,7 +36,7 @@ def test_engine_emits_device_timing(tmp_path):
 
 def test_engine_reload_preserves_results():
     idx, samples = _small_index()
-    engine = TPUQueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1,)))
+    engine = QueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1,)))
     q = samples[0]["question"]
     before = np.asarray(engine.query_batch([q]).hits.ids)
     engine.reload()
@@ -49,8 +49,8 @@ def test_engine_from_reloaded_packed_index(tmp_path):
     idx, samples = _small_index()
     idx.save(tmp_path / "idx")
     loaded = PackedIndex.load(tmp_path / "idx", mmap=True)
-    e1 = TPUQueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1,)))
-    e2 = TPUQueryEngine(loaded, config=EngineConfig(top_k=5, batch_buckets=(1,)))
+    e1 = QueryEngine(idx, config=EngineConfig(top_k=5, batch_buckets=(1,)))
+    e2 = QueryEngine(loaded, config=EngineConfig(top_k=5, batch_buckets=(1,)))
     q = samples[1]["question"]
     a = np.asarray(e1.query_batch([q]).hits.ids)
     b = np.asarray(e2.query_batch([q]).hits.ids)

@@ -12,7 +12,6 @@ import json
 from pathlib import Path
 
 import pytest
-import yaml
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -138,7 +137,7 @@ def env(tmp_path_factory):
         ]},
     ])
 
-    base = yaml.safe_load((REPO_ROOT / "config" / "settings.yaml").read_text())
+    base = json.loads((REPO_ROOT / "config" / "settings.json").read_text())
     base["providers"]["transcript"] = {
         "type": ("a_modular_rag_framework_tpu.core.providers."
                  "transcript_provider:TranscriptReplayProvider"),
@@ -160,8 +159,8 @@ def env(tmp_path_factory):
     base["modules"]["reasoning"]["impl_kwargs"]["max_refine_rounds"] = 0
     base["modules"]["verification"]["impl_kwargs"]["sc_runs"] = 5
 
-    settings_path = root / "settings.yaml"
-    settings_path.write_text(yaml.safe_dump(base))
+    settings_path = root / "settings.json"
+    settings_path.write_text(json.dumps(base))
     reset_system_cache()
     return {"settings": str(settings_path), "sample": s,
             "runs": str(root / "runs"), "gold": gold}

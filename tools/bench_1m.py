@@ -47,7 +47,7 @@ def main():
     from a_modular_rag_framework_tpu.utils.jax_setup import enable_compilation_cache
     enable_compilation_cache()
     from a_modular_rag_framework_tpu.core.dataset_loader import SyntheticHotpotQALoader
-    from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, TPUQueryEngine
+    from a_modular_rag_framework_tpu.engine.query_engine import EngineConfig, QueryEngine
     from a_modular_rag_framework_tpu.eval.harness import evaluate_retrieval
     from a_modular_rag_framework_tpu.index.builder import build_packed_index
     from a_modular_rag_framework_tpu.index.corpus import SentenceCorpus
@@ -76,7 +76,7 @@ def main():
         t_build = time.time() - t0
     B = args.batch
     # same operating point as bench.py's scale rows
-    engine = TPUQueryEngine(idx, config=EngineConfig(
+    engine = QueryEngine(idx, config=EngineConfig(
         top_k=10, pool_k=args.pool_k, graph_window=2, batch_buckets=(B,),
         query_df_ratio_max=0.05, graph_impl=args.graph_impl,
         graph_compact_cap=args.cap, bm25_posting_cap=1024,

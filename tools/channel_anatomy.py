@@ -39,7 +39,7 @@ def main():
     )
     from a_modular_rag_framework_tpu.engine.query_engine import (
         EngineConfig,
-        TPUQueryEngine,
+        QueryEngine,
     )
     from a_modular_rag_framework_tpu.eval.harness import gold_hit_ids
     from a_modular_rag_framework_tpu.index.builder import build_packed_index
@@ -61,11 +61,11 @@ def main():
                 batch_buckets=(Q,), query_df_ratio_max=0.05,
                 bm25_term_topm=16, graph_compact_cap=128,
                 graph_wave_dtype="bfloat16")
-    fused = TPUQueryEngine(idx, config=EngineConfig(top_k=10, **base))
+    fused = QueryEngine(idx, config=EngineConfig(top_k=10, **base))
     chans = {}
     for name, al in (("text", (1, 0, 0)), ("graph", (0, 1, 0)),
                      ("dense", (0, 0, 1))):
-        e = TPUQueryEngine(idx, config=EngineConfig(
+        e = QueryEngine(idx, config=EngineConfig(
             top_k=200, alpha_text=al[0], alpha_graph=al[1],
             alpha_dense=al[2], **base))
         chans[name] = e

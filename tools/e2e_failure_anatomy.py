@@ -33,7 +33,6 @@ def main():
     ap.add_argument("--corpus", default="variety")
     args = ap.parse_args()
 
-    import yaml
 
     from a_modular_rag_framework_tpu.core.dataset_loader import (
         SyntheticHotpotQALoader,
@@ -59,7 +58,7 @@ def main():
     s_path, settings = build_corpus_settings(
         samples, work, index_titles=args.corpus == "natural")
     settings["dataset"] = ds_cfg
-    s_path.write_text(yaml.safe_dump(settings))
+    s_path.write_text(json.dumps(settings))
 
     buckets = Counter()
     examples = {}

@@ -2,7 +2,7 @@
 
 Runs the FULL workflow (graph construction -> hybrid retrieval w/ iterative
 2-hop -> plan/synthesize reasoning -> rules+LLM verification + retry loop)
-through `answer_question` under the shipped config/settings.yaml, over an
+through `answer_question` under the shipped config/settings.json, over an
 ingested synthetic corpus, and reports EM / relaxed EM / F1 / verdicts.
 This is the recorded counterpart of the reference's run_system mode
 (/root/reference/my_code/run_system.py:13-66).
@@ -26,25 +26,23 @@ sys.path.insert(0, str(ROOT))
 
 
 def build_corpus_settings(samples, work: Path, *, index_titles=False):
-    """Ingest a sample corpus under ``work`` and write a settings.yaml that
+    """Ingest a sample corpus under ``work`` and write a settings.json that
     repoints the SHIPPED config at it (shared by e2e_run.py and
     e2e_failure_anatomy.py so both always measure the same configuration).
     Returns the settings path."""
-    import yaml
-
     from a_modular_rag_framework_tpu.cli.ingest_hotpotqa import ingest
 
     docs_out = work / "docs.jsonl"
     ingest(samples, graph_root=work / "graph", docs_out=docs_out,
            index_titles=index_titles)
-    settings = yaml.safe_load((ROOT / "config" / "settings.yaml").read_text())
+    settings = json.loads((ROOT / "config" / "settings.json").read_text())
     rk = settings["modules"]["retrieval"].setdefault("impl_kwargs", {})
     rk["index_path"] = str(docs_out)
     rk["graph_root"] = str(work / "graph")
     if index_titles:
         rk["index_titles"] = True
-    s_path = work / "settings.yaml"
-    s_path.write_text(yaml.safe_dump(settings))
+    s_path = work / "settings.json"
+    s_path.write_text(json.dumps(settings))
     return s_path, settings
 
 
@@ -60,8 +58,6 @@ def main():
     ap.add_argument("--no_write", action="store_true")
     args = ap.parse_args()
     tag = args.tag or f"{args.corpus}_shipped"
-
-    import yaml
 
     from a_modular_rag_framework_tpu.core.dataset_loader import (
         SyntheticHotpotQALoader,
@@ -88,7 +84,7 @@ def main():
     s_path, settings = build_corpus_settings(
         samples, work, index_titles=args.corpus == "natural")
     settings["dataset"] = ds_cfg
-    s_path.write_text(yaml.safe_dump(settings))
+    s_path.write_text(json.dumps(settings))
 
     ems, rems, f1s, verdicts = [], [], [], {}
     # verifier-vs-EM confusion (VERDICT r4 item 4): does the verdict

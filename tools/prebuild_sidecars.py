@@ -17,12 +17,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import numpy as np
-
 from bench import (  # noqa: E402
     CACHE_DIR_100K,
     N_SAMPLES_100K,
-    SCALE_BATCH,
     attach_learned,
     build_or_load_index,
 )
@@ -34,12 +31,6 @@ def main():
     )
 
     enable_compilation_cache()
-    import jax
-    import jax.numpy as jnp
-
-    t0 = time.time()
-    np.asarray(jax.jit(lambda x: x + 1)(jnp.zeros((8,), np.float32)))
-    print(f"device_init: {time.time() - t0:.1f}s", flush=True)
 
     idx1, _, _ = build_or_load_index(N_SAMPLES_100K, CACHE_DIR_100K,
                                      collide=True)
